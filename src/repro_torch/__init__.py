@@ -1,0 +1,36 @@
+"""repro_torch: the PyTorch and CUDA port of ``repro`` (csrcolor-jax).
+
+Public entry point: ``repro_torch.color`` (a lazy re-export of
+``repro_torch.api``).  It runs on the card by default (``device="cuda"``),
+through hand-written CUDA kernels for Hopper (``csrc/``); ``device="cpu"``
+runs their plain PyTorch versions.  The package imports no JAX and nothing
+of ``repro``.  See README.md for what this slice covers.
+"""
+
+__version__ = "0.1.0"
+
+_API_NAMES = ("color", "algorithms", "get_algorithm", "register")
+_OPTIONS_NAMES = ("ColorOptions",)
+_ERROR_NAMES = ("ReproError", "CapacityError")
+
+
+def __getattr__(name):
+    # keep `import repro_torch` light: torch loads on first use only
+    if name in _API_NAMES:
+        from repro_torch import api
+
+        return getattr(api, name)
+    if name in _OPTIONS_NAMES:
+        from repro_torch import options
+
+        return getattr(options, name)
+    if name in _ERROR_NAMES:
+        from repro_torch import errors
+
+        return getattr(errors, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(list(globals()) + list(_API_NAMES) + list(_OPTIONS_NAMES)
+                  + list(_ERROR_NAMES))

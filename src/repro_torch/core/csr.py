@@ -1,0 +1,215 @@
+"""Compressed Sparse Row graph container (the paper's R / C arrays).
+
+The host graph ``CSRGraph`` is numpy, as in ``repro.core.csr``; the device
+form ``DeviceCSR`` holds int32 torch tensors on an explicit device:
+
+* ``row_starts`` (n+1,) — CSR offsets (R);
+* ``col_padded`` (m + dmax,) — CSR column ids (C) with ``dmax`` trailing
+  sentinel slots holding ``n``, so a full-width row read starting at the
+  last row never leaves the array;
+* ``deg_ext`` (n+1,) — degrees with a trailing 0 for the sentinel id ``n``.
+
+Gathers through an extended color array ``colors_ext`` of length ``n + 1``
+(slot ``n`` pinned to color 0) make sentinel lanes inert: color 0 is
+"uncolored", never forbidden and never conflicting.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+__all__ = [
+    "CSRGraph",
+    "DeviceCSR",
+    "auto_tile_thresholds",
+    "csr_from_edges",
+    "next_pow2",
+]
+
+
+def next_pow2(x: int) -> int:
+    """Smallest power of two >= max(x, 1)."""
+    x = max(int(x), 1)
+    return 1 << (x - 1).bit_length()
+
+
+@dataclasses.dataclass(frozen=True)
+class CSRGraph:
+    """Undirected sparse graph in CSR form (host-side, numpy)."""
+
+    row_offsets: np.ndarray  # (n+1,) int32/int64
+    col_indices: np.ndarray  # (m,) int32
+
+    def __post_init__(self):
+        if self.row_offsets.ndim != 1 or self.col_indices.ndim != 1:
+            raise ValueError("row_offsets and col_indices must be 1-D")
+        if self.row_offsets.shape[0] < 1 or self.row_offsets[0] != 0:
+            raise ValueError("row_offsets must start at 0")
+        if self.row_offsets[-1] != self.col_indices.shape[0]:
+            raise ValueError("row_offsets[-1] must equal len(col_indices)")
+
+    @classmethod
+    def from_numpy(cls, row_offsets, col_indices) -> "CSRGraph":
+        """Wrap CSR arrays, e.g. those of a ``repro.CSRGraph``, unchanged."""
+        return cls(np.asarray(row_offsets), np.asarray(col_indices))
+
+    @property
+    def n(self) -> int:
+        return int(self.row_offsets.shape[0] - 1)
+
+    @property
+    def m(self) -> int:
+        """Number of directed edges (2x undirected edge count)."""
+        return int(self.col_indices.shape[0])
+
+    @property
+    def degrees(self) -> np.ndarray:
+        return np.diff(self.row_offsets).astype(np.int32)
+
+    @property
+    def max_degree(self) -> int:
+        return int(self.degrees.max(initial=0))
+
+    def edges(self) -> tuple[np.ndarray, np.ndarray]:
+        src = np.repeat(np.arange(self.n, dtype=np.int32), self.degrees)
+        return src, self.col_indices.astype(np.int32)
+
+
+def csr_from_edges(
+    n: int,
+    src: np.ndarray,
+    dst: np.ndarray,
+    *,
+    symmetrize: bool = True,
+    dedup: bool = True,
+) -> CSRGraph:
+    """Build a clean CSR graph from an edge list.
+
+    Drops self loops; optionally symmetrizes (undirected) and deduplicates.
+    Adjacency lists come out sorted, matching the UF-collection convention.
+    """
+    src = np.asarray(src, dtype=np.int64)
+    dst = np.asarray(dst, dtype=np.int64)
+    keep = src != dst
+    src, dst = src[keep], dst[keep]
+    if symmetrize:
+        src, dst = np.concatenate([src, dst]), np.concatenate([dst, src])
+    if dedup and src.size:
+        key = np.unique(src * n + dst)
+        src, dst = key // n, key % n
+    order = np.lexsort((dst, src))
+    src, dst = src[order], dst[order]
+    row_offsets = np.zeros(n + 1, dtype=np.int64)
+    np.add.at(row_offsets, src + 1, 1)
+    row_offsets = np.cumsum(row_offsets)
+    return CSRGraph(row_offsets.astype(np.int64), dst.astype(np.int32))
+
+
+def auto_tile_thresholds(
+    degrees: np.ndarray,
+    *,
+    min_width: int = 8,
+    min_class_frac: float = 0.05,
+    max_classes: int = 6,
+) -> tuple[int, ...]:
+    """Log-spaced degree-class thresholds derived from the degree histogram.
+
+    Candidate bounds double from ``min_width`` up to the max degree; a bound
+    survives only if the class it closes holds at least ``min_class_frac``
+    of the vertices (smaller classes merge into the next wider tile).
+    Returns ``()`` — one full-width class — for graphs under 2048 vertices
+    or with ``dmax <= 2 * min_width``.
+    """
+    degrees = np.asarray(degrees)
+    n = int(degrees.size)
+    dmax = int(degrees.max(initial=0))
+    if n < 2048 or dmax <= 2 * min_width:
+        return ()
+    out: list[int] = []
+    lo = 0
+    t = min_width
+    while t < dmax and len(out) < max_classes:
+        if int(((degrees > lo) & (degrees <= t)).sum()) >= min_class_frac * n:
+            out.append(t)
+            lo = t
+        t *= 2
+    return tuple(out)
+
+
+class DeviceCSR:
+    """Device-resident CSR graph — the ragged engine's native storage.
+
+    ``gather_rows(ids, width)`` materializes only the ``(w, width)`` tile a
+    worklist class needs; lanes past each row's degree, and whole rows for
+    sentinel ids, read as the sentinel ``n``.
+    """
+
+    def __init__(self, row_starts, col_padded, deg_ext, n: int, max_width: int):
+        self.row_starts = row_starts
+        self.col_padded = col_padded
+        self.deg_ext = deg_ext
+        self.n = int(n)
+        self.max_width = int(max_width)  # widest legal gather (>= max degree)
+
+    @property
+    def device(self) -> torch.device:
+        return self.row_starts.device
+
+    @classmethod
+    def from_csr(cls, g: CSRGraph, device) -> "DeviceCSR":
+        """The device form of ``g``, built exactly as ``repro`` builds it."""
+        n = g.n
+        w = max(g.max_degree, 1)
+        col = np.concatenate(
+            [g.col_indices.astype(np.int32), np.full(w, n, np.int32)])
+        deg = np.concatenate([g.degrees, np.zeros(1, np.int32)]).astype(np.int32)
+        return cls(
+            torch.from_numpy(g.row_offsets.astype(np.int32)).to(device),
+            torch.from_numpy(col).to(device),
+            torch.from_numpy(deg).to(device),
+            n,
+            w,
+        )
+
+    # row-provider protocol of the engine: rows / row1
+    def rows(self, ids, width: int | None = None):
+        return self.gather_rows(ids, self.max_width if width is None else width)
+
+    def row1(self, v):
+        return self.gather_row1(v)
+
+    def gather_rows(self, ids: torch.Tensor, width: int) -> torch.Tensor:
+        """Ragged ``(w, width)`` neighbor-id tile for worklist ``ids``.
+
+        ``width`` must cover every gathered vertex's degree; narrower widths
+        would silently truncate adjacency.
+        """
+        n = self.n
+        safe = ids.clamp(0, max(n - 1, 0)).long()
+        starts = self.row_starts[safe]
+        deg = self.deg_ext[safe]
+        lane = torch.arange(width, dtype=torch.int32, device=ids.device)[None, :]
+        idx = (starts[:, None] + lane).clamp(max=self.col_padded.shape[0] - 1)
+        rows = self.col_padded[idx.long()]  # clamped as JAX clamps gathers
+        valid = (lane < deg[:, None]) & (ids < n)[:, None]
+        return torch.where(valid, rows, n)
+
+    def gather_row1(self, v: int, width: int | None = None) -> torch.Tensor:
+        """One vertex's sentinel-padded ``(width,)`` neighbor row.
+
+        The slice start is clamped so the row stays inside ``col_padded``,
+        as ``lax.dynamic_slice`` clamps it in ``repro``.
+        """
+        width = self.max_width if width is None else int(width)
+        n = self.n
+        v = int(v)
+        start = int(self.row_starts[min(max(v, 0), max(n - 1, 0))])
+        start = min(start, self.col_padded.shape[0] - width)
+        vals = self.col_padded[start: start + width]
+        lane = torch.arange(width, dtype=torch.int32, device=vals.device)
+        deg = int(self.deg_ext[min(max(v, 0), n)])
+        if v >= n:
+            return torch.full_like(vals, n)
+        return torch.where(lane < deg, vals, n)

@@ -1,0 +1,1 @@
+"""K1 (CSR-resident superstep) and K2 (serial tail): ``csr_kernel``."""

@@ -1,0 +1,223 @@
+"""K1 and K2: the CSR-resident superstep and the serial tail.
+
+Counterparts of ``repro.kernels.superstep.csr_kernel``.  The kernels are
+hand-written CUDA in ``repro_torch/csrc/superstep_csr.cu`` (its header says
+what each replaces, what bounds it and how its design answers that).  Each
+kernel has here:
+
+* a wrapper (``superstep_csr``, ``serial_tail_csr``) that launches the
+  kernel for CUDA tensors and takes the plain version for CPU tensors —
+  nothing else decides the path, and a CUDA tensor never reaches the plain
+  version;
+* a plain PyTorch version (``superstep_csr_ref``, ``serial_tail_csr_ref``)
+  that repeats the kernel's arithmetic on CPU tensors;
+* a launch counter, ``wrapper.launches``, raised by one where the kernel is
+  launched and nowhere else.
+
+All arrays are int32.  ``row_starts``/``col_padded``/``deg_ext`` are the
+``DeviceCSR`` arrays; ``packed`` is the ``(n + 1,)`` ``color | deg << 16``
+table with slot ``n`` = 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.core.firstfit import firstfit_bitset
+from repro_torch.core.heuristics import HEURISTICS, conflict_lose_lanes
+from repro_torch.ingest import PACKED_GATHER_MAX_DEG
+from repro_torch.kernels import build
+
+__all__ = [
+    "serial_tail_csr",
+    "serial_tail_csr_ref",
+    "superstep_csr",
+    "superstep_csr_ref",
+]
+
+_LIB = "superstep_csr"
+# shared memory one block may use (H100: 227 KB) — K2 keeps W+1 bits in it
+_MAX_SMEM = 227 * 1024
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The kernels' library (built at first use), its signatures declared."""
+    lib = build.load(_LIB)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.repro_superstep_csr.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
+    lib.repro_superstep_csr.restype = i32
+    lib.repro_serial_tail_csr.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
+    lib.repro_serial_tail_csr.restype = i32
+    lib.repro_cuda_error_string.argtypes = [i32]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    if rc:
+        msg = lib.repro_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    """True for CPU tensors, False for CUDA ones; raises on a mix."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+        for t in tensors:
+            if t.dtype != torch.int32 or not t.is_contiguous() or t.dim() != 1:
+                raise ValueError(
+                    "the CUDA kernels take contiguous 1-D int32 tensors, got "
+                    f"{t.dtype} of shape {tuple(t.shape)}")
+        return False
+    raise ValueError(
+        f"tensors must all lie on the CPU or all on one CUDA device, got "
+        f"{sorted(str(t.device) for t in tensors)}")
+
+
+def _stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+# --------------------------------------------------------------------------
+# K1: the CSR-resident rotated superstep
+# --------------------------------------------------------------------------
+
+def superstep_csr_ref(row_starts, col_padded, packed, wl, W: int,
+                      heuristic: str = "degree"):
+    """Plain version of K1 on CPU tensors: ``(new_colors, need)`` for ``wl``.
+
+    Gathers the ``(w, W)`` row tile from C, masks lanes at or past each
+    row's degree to the sentinel ``n`` (packed word 0: inert), decides
+    conflicts on the packed words and FirstFits the refit tile.
+    """
+    n = row_starts.shape[0] - 1
+    safe = wl.clamp(0, max(n - 1, 0)).long()
+    starts = row_starts[safe]
+    lane = torch.arange(W, dtype=torch.int32)[None, :]
+    mypk = packed[wl.long()]
+    my_c = mypk & 0xFFFF
+    my_d = mypk >> 16
+    # lanes past a row's degree are masked below; clamping keeps their reads
+    # inside C when W exceeds the sentinel slack (JAX clamps gathers alike)
+    idx = (starts[:, None] + lane).clamp(max=col_padded.shape[0] - 1)
+    nid = torch.where(lane < my_d[:, None], col_padded[idx.long()], n)
+    npk = packed[nid.long()]
+    nc = npk & 0xFFFF
+    nd = npk >> 16
+    same, lose_lane = conflict_lose_lanes(wl, nid, my_c, nc, my_d, nd, heuristic)
+    need = lose_lane.any(dim=1) | (my_c == 0)
+    ff = firstfit_bitset(torch.where(same & ~lose_lane, 0, nc))
+    return torch.where(need, ff, my_c).to(torch.int32), need
+
+
+def superstep_csr(row_starts, col_padded, packed, wl, W: int,
+                  heuristic: str = "degree"):
+    """Fused row gather + conflict check + FirstFit straight from CSR.
+
+    Returns ``(new_colors, need)`` for the worklist ``wl`` (ids in
+    ``[0, n]``, ``n`` = sentinel).  Sentinel masking (``wl < n``) is the
+    caller's job, as in ``repro``.  ``W`` is the degree-class width and
+    must cover every worklist degree; the packed word needs
+    ``W < PACKED_GATHER_MAX_DEG``.
+    """
+    if heuristic not in HEURISTICS:
+        raise ValueError(f"unknown heuristic {heuristic!r}; options: {HEURISTICS}")
+    if not 1 <= int(W) < PACKED_GATHER_MAX_DEG:
+        raise ValueError(f"class width W={W} outside [1, {PACKED_GATHER_MAX_DEG})")
+    w = wl.shape[0]
+    n = row_starts.shape[0] - 1
+    cpu = _on_cpu(row_starts, col_padded, packed, wl)
+    if w == 0 or n == 0:
+        return (torch.zeros((0,), dtype=torch.int32, device=wl.device),
+                torch.zeros((0,), dtype=torch.bool, device=wl.device))
+    if cpu:
+        return superstep_csr_ref(row_starts, col_padded, packed, wl, W, heuristic)
+    if packed.shape[0] != n + 1:
+        raise ValueError(f"packed has {packed.shape[0]} slots, expected n + 1 = {n + 1}")
+    lib = _lib()
+    newc = torch.empty((w,), dtype=torch.int32, device=wl.device)
+    need = torch.empty((w,), dtype=torch.int32, device=wl.device)
+    rc = lib.repro_superstep_csr(
+        wl.data_ptr(), row_starts.data_ptr(), col_padded.data_ptr(),
+        packed.data_ptr(), newc.data_ptr(), need.data_ptr(),
+        w, int(W), n, int(heuristic == "degree"), _stream(wl.device))
+    superstep_csr.launches += 1
+    _check(lib, rc, "superstep_csr")
+    return newc, need.bool()
+
+
+superstep_csr.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K2: the serial tail, one block walking the worklist in order
+# --------------------------------------------------------------------------
+
+def serial_tail_csr_ref(row_starts, col_padded, deg_ext, colors_ext, wl, W: int):
+    """Plain version of K2 on CPU tensors; updates ``colors_ext`` in place.
+
+    Clears the worklist's colors, then gives each vertex in order the
+    smallest color in ``[1, W+1]`` absent from its neighbors' current
+    colors (sentinels write slot ``n`` = 0).  Walks Python lists: the loop
+    is sequential by definition.
+    """
+    n = row_starts.shape[0] - 1
+    order = wl.tolist()
+    R = row_starts.tolist()
+    C = col_padded.tolist()
+    deg = deg_ext.tolist()
+    colors = colors_ext.tolist()
+    for v in order:
+        colors[v] = 0  # sentinel entries write slot n: 0
+    for v in order:
+        if v >= n:
+            colors[n] = 0
+            continue
+        s = R[v]
+        taken = {colors[u] for u in C[s: s + min(deg[v], W)]}
+        c = 1
+        while c in taken:
+            c += 1
+        colors[v] = c
+    colors_ext.copy_(torch.tensor(colors, dtype=torch.int32))
+    return colors_ext
+
+
+def serial_tail_csr(row_starts, col_padded, deg_ext, colors_ext, wl, W: int):
+    """The serial tail fused into one kernel over the CSR arrays.
+
+    ``wl`` arrives in ``order_tail`` order; ``W`` is the full gather width
+    (>= every worklist degree).  Updates ``colors_ext`` in place and
+    returns it.
+    """
+    n = row_starts.shape[0] - 1
+    T = wl.shape[0]
+    cpu = _on_cpu(row_starts, col_padded, deg_ext, colors_ext, wl)
+    if T == 0 or n == 0:
+        return colors_ext
+    if cpu:
+        return serial_tail_csr_ref(row_starts, col_padded, deg_ext, colors_ext,
+                                   wl, W)
+    if (int(W) + 32) // 32 * 4 > _MAX_SMEM:
+        raise ValueError(f"tail width W={W} needs more shared memory than a block has")
+    if colors_ext.shape[0] != n + 1:
+        raise ValueError(
+            f"colors_ext has {colors_ext.shape[0]} slots, expected n + 1 = {n + 1}")
+    # read ahead by the kernel: neither depends on the colors
+    starts = row_starts[wl.clamp(0, max(n - 1, 0))]
+    degs = deg_ext[wl.clamp(0, n)]
+    lib = _lib()
+    rc = lib.repro_serial_tail_csr(
+        wl.data_ptr(), starts.data_ptr(), degs.data_ptr(), col_padded.data_ptr(),
+        colors_ext.data_ptr(), T, int(W), n, _stream(wl.device))
+    serial_tail_csr.launches += 1
+    _check(lib, rc, "serial_tail_csr")
+    return colors_ext
+
+
+serial_tail_csr.launches = 0

@@ -6,6 +6,13 @@ import pytest
 # src-layout import path (tests also work without `pip install -e .`)
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skips without one (decided "
+        "inside the test's fixture)")
+
+
 # NOTE: deliberately no XLA_FLAGS here — smoke tests and benches must see the
 # single real device; only launch/dryrun.py (and subprocess tests) fake a fleet.
 

@@ -1,0 +1,279 @@
+"""Guards, option surface and device behaviour of the PyTorch port.
+
+This file imports no JAX, so its card tests (marked ``cuda``) also run on a
+machine without JAX:
+
+    PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_package.py
+
+Without a card they skip; the decision is made inside the ``cuda_device``
+fixture, never while the module is imported.
+"""
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.core.coloring import order_tail, run_ragged_engine
+from repro_torch.core.csr import CSRGraph, DeviceCSR, csr_from_edges
+from repro_torch.errors import CapacityError
+from repro_torch.graphs import build_graph, erdos_renyi, grid2d, power_law
+from repro_torch.kernels.superstep.csr_kernel import (
+    serial_tail_csr,
+    serial_tail_csr_ref,
+    superstep_csr,
+    superstep_csr_ref,
+)
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FIELDS = ("iterations", "work_items", "padded_work", "class_cells", "converged")
+KERNELS = (superstep_csr, serial_tail_csr)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
+    return torch.device("cuda", 0)
+
+
+@pytest.fixture
+def zero_counts():
+    for k in KERNELS:
+        k.launches = 0
+    yield
+    for k in KERNELS:
+        k.launches = 0
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_and_no_repro(path):
+    tops = {name.split(".")[0] for name in _imported_modules(path)}
+    assert not tops & {"jax", "jaxlib", "repro"}, path
+
+
+def _k1_inputs(seed=5):
+    g = power_law(1500, 6.0, seed=seed)
+    dev = DeviceCSR.from_csr(g, "cpu")
+    rng = np.random.default_rng(seed)
+    colors = np.concatenate([rng.integers(0, dev.max_width + 2, g.n), [0]])
+    packed = torch.from_numpy(colors.astype(np.int32)) + (dev.deg_ext << 16)
+    wl = torch.from_numpy(np.concatenate(
+        [rng.permutation(g.n)[:999], np.full(5, g.n)]).astype(np.int32))
+    return g, dev, packed, wl
+
+
+def test_wrappers_take_plain_versions_on_cpu_and_count_no_launch(zero_counts):
+    g, dev, packed, wl = _k1_inputs()
+    W = dev.max_width
+    got = superstep_csr(dev.row_starts, dev.col_padded, packed, wl, W, "degree")
+    want = superstep_csr_ref(dev.row_starts, dev.col_padded, packed, wl, W, "degree")
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    tail = order_tail(wl, dev.deg_ext)
+    colors = torch.ones(g.n + 1, dtype=torch.int32)
+    got = serial_tail_csr(dev.row_starts, dev.col_padded, dev.deg_ext,
+                          colors.clone(), tail, W)
+    want = serial_tail_csr_ref(dev.row_starts, dev.col_padded, dev.deg_ext,
+                               colors.clone(), tail, W)
+    assert torch.equal(got, want)
+    r = repro_torch.color(build_graph("rmat-g", 0.05), device="cpu")
+    assert r.iterations > 2 and r.class_cells[-1][0] == r.class_cells[0][0]
+    assert [k.launches for k in KERNELS] == [0, 0]
+
+
+def test_color_without_device_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present, so device=None runs there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        repro_torch.color(grid2d(4, 4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        repro_torch.color(grid2d(4, 4), device="cuda")
+
+
+NOT_PORTED = [
+    ("engine-padded", (), dict(engine="padded"), "A4"),
+    ("engine-classic", (), dict(engine="classic"), "A4"),
+    ("engine-sharded", (), dict(engine="sharded"), "A11"),
+    ("mode-fused", (), dict(mode="fused"), "A4"),
+    ("coarsen-ff", (), dict(coarsen_ff=2), "A4"),
+    ("coarsen-cr", (), dict(coarsen_cr=3), "A4"),
+    ("coarsen-lanes", (), dict(coarsen_lanes=4), "A4"),
+    ("trace", (), dict(trace=True), "A6"),
+    ("validate-input", (), dict(validate_input="strict"), "A10"),
+    ("ensure-valid", (), dict(ensure_valid=True), "A10"),
+    ("algorithm-fused", ("fused",), {}, "A4"),
+    ("algorithm-serial", ("serial",), {}, "A5"),
+    ("algorithm-jp", ("jp",), {}, "A5"),
+    ("algorithm-distance2", ("distance2",), {}, "A8"),
+    ("algorithm-dynamic", ("dynamic",), {}, "A9"),
+]
+
+
+@pytest.mark.parametrize("args,opts,item", [c[1:] for c in NOT_PORTED],
+                         ids=[c[0] for c in NOT_PORTED])
+def test_options_outside_the_slice_raise_naming_their_item(args, opts, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        repro_torch.color(erdos_renyi(300, 5.0, seed=1), *args, device="cpu",
+                          **opts)
+
+
+def test_unchunked_coarsen_lanes_is_in_the_slice():
+    g = erdos_renyi(300, 5.0, seed=1)
+    a = repro_torch.color(g, device="cpu")
+    b = repro_torch.color(g, device="cpu", coarsen_lanes=g.n)
+    np.testing.assert_array_equal(a.colors, b.colors)
+    assert all(getattr(a, f) == getattr(b, f) for f in FIELDS)
+
+
+def test_warm_start_raises_naming_its_item():
+    g = grid2d(6, 6)
+    dev = DeviceCSR.from_csr(g, "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        run_ragged_engine(n=g.n, provider=dev, deg_ext=dev.deg_ext,
+                          classes=[np.arange(g.n, dtype=np.int32)],
+                          widths=[4], tail_width=4,
+                          max_iters=10, colors_init=np.zeros(g.n + 1, np.int32))
+
+
+def test_packed_capacity_guard():
+    g = grid2d(6, 6)
+    dev = DeviceCSR.from_csr(g, "cpu")
+    with pytest.raises(CapacityError, match="packed gather"):
+        run_ragged_engine(n=g.n, provider=dev, deg_ext=dev.deg_ext,
+                          classes=[np.arange(g.n, dtype=np.int32)],
+                          widths=[4], tail_width=40000,
+                          max_iters=10, pack_degrees=True)
+
+
+@pytest.mark.parametrize("opts,match", [
+    (dict(backend="cuda"), "needs a CUDA device"),
+    (dict(backend="pallas-csr"), "unknown backend"),
+    (dict(backend="torch"), "unknown backend"),
+    (dict(engine="dense"), "unknown engine"),
+    (dict(mode="eager"), "unknown mode"),
+    (dict(heuristic="random"), "unknown heuristic"),
+    (dict(firstfit="popcount"), "unknown firstfit"),
+])
+def test_bad_options_raise_value_error(opts, match):
+    with pytest.raises(ValueError, match=match):
+        repro_torch.color(grid2d(5, 5), device="cpu", **opts)
+
+
+def test_unknown_device_and_algorithm_raise():
+    with pytest.raises(ValueError, match="neither"):
+        repro_torch.color(grid2d(5, 5), device="meta")
+    with pytest.raises(ValueError, match="unknown algorithm"):
+        repro_torch.color(grid2d(5, 5), "nonesuch", device="cpu")
+
+
+@pytest.mark.parametrize("backend", [None, "auto"])
+def test_auto_backends_run_on_cpu(backend):
+    r = repro_torch.color(grid2d(5, 5), device="cpu", backend=backend)
+    assert r.converged and r.num_colors >= 2
+
+
+def test_public_surface():
+    assert repro_torch.algorithms() == ("data_driven",)
+    assert repro_torch.get_algorithm("data_driven").__name__ == "color_data_driven"
+    assert issubclass(repro_torch.CapacityError, repro_torch.ReproError)
+    o = repro_torch.ColorOptions.normalize(heuristic="id", tiling=(8, 16))
+    assert o.engine_kwargs() == {"heuristic": "id", "tiling": (8, 16)}
+    assert hash(o) == hash(repro_torch.ColorOptions(
+        heuristic="id", extra={"tiling": [8, 16]}))
+    with pytest.raises(AttributeError):
+        repro_torch.nonesuch  # noqa: B018
+
+
+def test_csr_graph_from_numpy_checks_its_arrays():
+    with pytest.raises(ValueError):
+        CSRGraph.from_numpy(np.array([1, 2]), np.array([0, 1]))
+    with pytest.raises(ValueError):
+        CSRGraph.from_numpy(np.array([0, 3]), np.array([0, 1]))
+    g = CSRGraph.from_numpy([0, 1, 2], [1, 0])
+    assert (g.n, g.m, g.max_degree) == (2, 2, 1)
+
+
+def test_kernel_wrappers_validate_their_arguments():
+    g, dev, packed, wl = _k1_inputs()
+    with pytest.raises(ValueError, match="class width"):
+        superstep_csr(dev.row_starts, dev.col_padded, packed, wl, 0)
+    with pytest.raises(ValueError, match="unknown heuristic"):
+        superstep_csr(dev.row_starts, dev.col_padded, packed, wl, 4, "random")
+
+
+# --------------------------------------------------------------------------
+# on the card
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heuristic", ["id", "degree"])
+def test_cuda_k1_matches_plain(cuda_device, zero_counts, heuristic):
+    g, dev, packed, wl = _k1_inputs(seed=9)
+    gpu = DeviceCSR.from_csr(g, cuda_device)
+    W = dev.max_width
+    want = superstep_csr_ref(dev.row_starts, dev.col_padded, packed, wl, W,
+                             heuristic)
+    got = superstep_csr(gpu.row_starts, gpu.col_padded, packed.to(cuda_device),
+                        wl.to(cuda_device), W, heuristic)
+    assert superstep_csr.launches == 1
+    assert all(torch.equal(a, b.cpu()) for a, b in zip(want, got))
+
+
+@pytest.mark.cuda
+def test_cuda_k2_matches_plain(cuda_device, zero_counts):
+    g, dev, _, wl = _k1_inputs(seed=10)
+    gpu = DeviceCSR.from_csr(g, cuda_device)
+    tail = order_tail(wl, dev.deg_ext)
+    colors = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 9, g.n + 1).astype(np.int32))
+    colors[g.n] = 0
+    want = serial_tail_csr_ref(dev.row_starts, dev.col_padded, dev.deg_ext,
+                               colors.clone(), tail, dev.max_width)
+    got = serial_tail_csr(gpu.row_starts, gpu.col_padded, gpu.deg_ext,
+                          colors.to(cuda_device), tail.to(cuda_device),
+                          dev.max_width)
+    assert serial_tail_csr.launches == 1
+    assert torch.equal(want, got.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rmat-g", "thermal2", "europe.osm"])
+def test_cuda_color_matches_cpu(cuda_device, zero_counts, name):
+    g = build_graph(name, 0.05)
+    a = repro_torch.color(g, device=cuda_device)
+    assert superstep_csr.launches > 0 and serial_tail_csr.launches > 0
+    b = repro_torch.color(g, device="cpu")
+    np.testing.assert_array_equal(a.colors, b.colors)
+    assert all(getattr(a, f) == getattr(b, f) for f in FIELDS)
+
+
+@pytest.mark.cuda
+def test_cuda_packed_overflow_raises_naming_k3(cuda_device):
+    n = 32769  # a star whose hub has degree 2^15 > PACKED_GATHER_MAX_DEG
+    g = csr_from_edges(n, np.zeros(n - 1, np.int64), np.arange(1, n))
+    with pytest.raises(NotImplementedError, match="K3"):
+        repro_torch.color(g, device=cuda_device)
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_reject_other_dtypes_and_mixed_devices(cuda_device):
+    g, dev, packed, wl = _k1_inputs()
+    gpu = DeviceCSR.from_csr(g, cuda_device)
+    with pytest.raises(ValueError, match="int32"):
+        superstep_csr(gpu.row_starts, gpu.col_padded, packed.to(cuda_device),
+                      wl.to(cuda_device).long(), dev.max_width)
+    with pytest.raises(ValueError, match="all lie"):
+        superstep_csr(gpu.row_starts, gpu.col_padded, packed, wl, dev.max_width)
