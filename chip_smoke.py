@@ -14,18 +14,34 @@ Phases, in order; any failure ends the run with a non-zero exit code:
              over class widths 1..4096, both heuristics, sentinel-padded
              worklists of odd lengths.
 4. K2      — the serial-tail kernel against its plain version, bit for bit.
-5. slice   — every SUITE graph at scale 0.25 through ``color`` on the card
-             and on the CPU: every ``ColoringResult`` field equal.
-6. full    — the paper's three 1M-vertex graphs (rmat-er, rmat-g, thermal2)
-             on the card: valid colorings, K1 and K2 launch counts above 0,
-             rmat-er's colors equal to the serial-greedy oracle; times,
-             per-kernel times from CUDA events, peak memory.
+5. K3-K5   — the gathered-tile kernels against their plain versions, bit
+             for bit: widths 1..4096, both heuristics, sentinel rows, rows
+             whose colours 1..32 are all taken.
+6. latency — a dependent-load chain (``csrc/latency_probe.cu``) times one
+             L1 hit and one L2 hit: K2's chain bound is T such steps.
+7. slice   — every SUITE graph at scale 0.25 through ``color`` on the card
+             and on the CPU: every ``ColoringResult`` field equal; then the
+             classic, padded, chunked and fused options on rmat-er, rmat-g
+             and thermal2 at 0.25, and the packed-overflow star, the same.
+8. full    — the main paths at full size, each ``color()`` run once with
+             the launch counts set to 0 just before and read just after,
+             then timed: the default ragged path, the classic engine and
+             the padded engine on the paper's three 1M-vertex graphs
+             (rmat-er, rmat-g, thermal2); the default path on kkt_power at
+             scale 4 (degrees past the packed word: K3 in every class);
+             chunked (coarsen_lanes=65536) and fused ragged runs on rmat-er.
+             Valid colorings, launch counts above 0 for the kernels each
+             path runs, rmat-er's default colors equal to the serial-greedy
+             oracle; times, per-kernel times from CUDA events at the main
+             paths' shapes (each kernel held against its plain version
+             there), peak memory, a profiler line.
 
 The line before the last is the kernels' JSON record, and the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import statistics
 import subprocess
@@ -39,23 +55,42 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import color  # noqa: E402
-from repro_torch.core.coloring import _resolve_classes, order_tail  # noqa: E402
+from repro_torch.core.coloring import (  # noqa: E402
+    DenseRows,
+    _resolve_classes,
+    order_tail,
+)
 from repro_torch.core.csr import DeviceCSR, csr_from_edges  # noqa: E402
 from repro_torch.core.serial import greedy_serial  # noqa: E402
 from repro_torch.core.validate import is_valid_coloring  # noqa: E402
 from repro_torch.graphs import RMAT_ER, RMAT_G, SUITE, build_graph, grid2d, rmat  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.conflict.kernel import (  # noqa: E402
+    conflict_tile,
+    conflict_tile_ref,
+)
+from repro_torch.kernels.cuda import check, stream  # noqa: E402
+from repro_torch.kernels.firstfit.kernel import (  # noqa: E402
+    firstfit_tile,
+    firstfit_tile_ref,
+)
 from repro_torch.kernels.superstep.csr_kernel import (  # noqa: E402
     serial_tail_csr,
     serial_tail_csr_ref,
     superstep_csr,
     superstep_csr_ref,
 )
+from repro_torch.kernels.superstep.kernel import (  # noqa: E402
+    superstep_tile,
+    superstep_tile_ref,
+)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA's data sheet
 RESULT_FIELDS = ("iterations", "work_items", "padded_work", "class_cells",
                  "converged")
-KERNELS = (superstep_csr, serial_tail_csr)
+KERNELS = (superstep_csr, serial_tail_csr, superstep_tile, firstfit_tile,
+           conflict_tile)
+HEURISTICS = ("id", "degree")
 
 
 def fail(msg: str):
@@ -218,33 +253,191 @@ def check_k2(dev_cuda):
           "random and low colors; sentinels)", flush=True)
 
 
+# --------------------------------------------------------------------------
+# phase 5: K3, K4 and K5 against their plain versions
+# --------------------------------------------------------------------------
+
+def tile_case(rng, W: int, w: int, n: int, mode: str):
+    """``(ids, nid, my_c, nc, my_d, nd)`` int32 arrays for one tile.
+
+    Rows are ragged (lanes past a random degree hold the sentinel ``n``,
+    colour 0, degree 0) and the last seven are sentinel rows.  ``random``
+    draws colours from [0, W+1], ``low`` from [0, min(W+1, 40)] (a wide
+    row's first bitset word fills up), and ``full`` gives half the rows a
+    permutation of 1..W, so for W >= 32 every colour 1..32 is taken and
+    FirstFit runs the shared-bitset path (answer W + 1, or a colour the row
+    beats and clears).
+    """
+    hi = {"random": W + 1, "low": min(W + 1, 40), "full": W + 1}[mode]
+    ids = rng.integers(0, n, w).astype(np.int32)
+    nid = rng.integers(0, n, (w, W)).astype(np.int32)
+    nc = rng.integers(0, hi + 1, (w, W)).astype(np.int32)
+    nd = rng.integers(0, 9, (w, W)).astype(np.int32)
+    deg = rng.integers(0, W + 1, w)
+    my_c = rng.integers(0, hi + 1, w).astype(np.int32)
+    my_d = rng.integers(0, 9, w).astype(np.int32)
+    if mode == "full":
+        half = w // 2
+        nc[:half] = np.argsort(rng.random((half, W)), axis=1) + 1
+        deg[:half] = W
+    pad = np.arange(W)[None, :] >= deg[:, None]
+    pad[-7:] = True
+    nid[pad], nc[pad], nd[pad] = n, 0, 0
+    ids[-7:] = n
+    my_c[-7:] = my_d[-7:] = 0
+    return ids, nid, my_c, nc, my_d, nd
+
+
+def check_tiles(dev_cuda):
+    rng = np.random.default_rng(17)
+    cases = {"K3": 0, "K4": 0, "K5": 0}
+    widths = (1, 2, 8, 16, 26, 31, 32, 33, 63, 64, 100, 376, 1000, 4096)
+    for W in widths:
+        w = max(64, min(3001, 4_000_000 // W))
+        for mode in ("random", "low", "full"):
+            cpu = [torch.from_numpy(a) for a in tile_case(rng, W, w, 100_000, mode)]
+            gpu = [a.to(dev_cuda) for a in cpu]
+            got = firstfit_tile(gpu[3]).cpu()
+            if not torch.equal(firstfit_tile_ref(cpu[3]), got):
+                fail(f"K4 differs from its plain version: W={W} {mode} w={w}")
+            cases["K4"] += 1
+            for h in HEURISTICS:
+                if not torch.equal(conflict_tile_ref(*cpu, h),
+                                   conflict_tile(*gpu, h).cpu()):
+                    fail(f"K5 differs from its plain version: W={W} {mode} {h}")
+                cases["K5"] += 1
+                want = superstep_tile_ref(*cpu, h)
+                got = superstep_tile(*gpu, h)
+                if not all(torch.equal(a, b.cpu()) for a, b in zip(want, got)):
+                    fail(f"K3 differs from its plain version: W={W} {mode} {h}")
+                cases["K3"] += 1
+    print(f"K3, K4, K5 == plain on {cases} cases (W in {widths}; random, low "
+          "and full rows; both heuristics; sentinel rows)", flush=True)
+
+
+# --------------------------------------------------------------------------
+# phase 6: dependent-load latency (K2's chain bound)
+# --------------------------------------------------------------------------
+
+def chase_ns(dev_cuda, nwords: int, level: int, steps: int) -> float:
+    """ns per step of a random pointer chain of ``nwords`` int32 words,
+    loaded through L1 (``level`` 1) or L2 only (2), after a warm pass."""
+    lib = build.load("latency_probe")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.repro_chase.argtypes = [ptr, i32, i32, i32, ptr, ptr]
+    lib.repro_chase.restype = i32
+    rng = np.random.default_rng(nwords)
+    perm = rng.permutation(nwords)
+    nxt = np.empty(nwords, np.int32)
+    nxt[perm] = np.roll(perm, -1)  # one cycle through every word
+    table = torch.from_numpy(nxt).to(dev_cuda)
+    out = torch.empty(1, dtype=torch.int32, device=dev_cuda)
+
+    def run(k):
+        check(lib, lib.repro_chase(table.data_ptr(), 0, k, level, out.data_ptr(),
+                                   stream(dev_cuda)), "chase")
+
+    run(nwords)  # warm: every word once
+    ms = event_ms(lambda: run(steps), reps=3, warm=0)
+    return ms * 1e6 / steps
+
+
+def check_latency(dev_cuda) -> dict:
+    lat = {"l1_ns": chase_ns(dev_cuda, 2048, 1, 200_000),
+           "l2_ns": chase_ns(dev_cuda, 1 << 21, 2, 200_000)}
+    print(f"dependent-load latency: L1 hit {lat['l1_ns']:.1f} ns (8 KB chain), "
+          f"L2 hit {lat['l2_ns']:.1f} ns (8 MB chain, L1 bypassed)", flush=True)
+    return lat
+
+
+# --------------------------------------------------------------------------
+# phase 7: card == CPU at small scale
+# --------------------------------------------------------------------------
+
+def same_result(a, b) -> list:
+    """The fields in which two ``ColoringResult``s differ ([] if none)."""
+    diff = [(f, getattr(a, f), getattr(b, f)) for f in RESULT_FIELDS
+            if getattr(a, f) != getattr(b, f)]
+    if not np.array_equal(a.colors, b.colors):
+        diff.append(("colors", int((a.colors != b.colors).sum()), "differ"))
+    return diff
+
+
+def overflow_star():
+    n = 32769  # the hub's degree 2^15 passes the packed gather word
+    return csr_from_edges(n, np.zeros(n - 1, np.int64), np.arange(1, n))
+
+
+# options checked card == CPU at small scale.  Chunking lanes scale with the
+# graph: the full runs chunk 1M vertices by 65536, these 16k by 1024.
+SMALL_OPTIONS = {
+    "classic": dict(engine="classic"),
+    "classic-fused": dict(engine="classic", mode="fused"),
+    "padded": dict(engine="padded"),
+    "padded-fused": dict(engine="padded", mode="fused"),
+    "chunked": dict(coarsen_lanes=1024),
+    "fused": dict(mode="fused"),
+}
+
+
 def check_slice(dev_cuda):
     for name in SUITE:
         g = build_graph(name, 0.25)
         a = color(g, device=dev_cuda)
         b = color(g, device="cpu")
-        same = np.array_equal(a.colors, b.colors) and all(
-            getattr(a, f) == getattr(b, f) for f in RESULT_FIELDS)
-        if not same:
-            diff = [(f, getattr(a, f), getattr(b, f)) for f in RESULT_FIELDS
-                    if getattr(a, f) != getattr(b, f)]
-            fail(f"slice parity: {name} card != cpu: "
-                 f"{int((a.colors != b.colors).sum())} colors differ, {diff}")
+        diff = same_result(a, b)
+        if diff:
+            fail(f"slice parity: {name} card != cpu: {diff}")
         if not is_valid_coloring(g, a.colors):
             fail(f"slice parity: {name} coloring is not valid")
         print(f"slice {name:14s} n={g.n:6d} iters={a.iterations} "
               f"colors={a.num_colors} card == cpu", flush=True)
+    runs = [(name, label) for name in ("rmat-er", "rmat-g", "thermal2")
+            for label in SMALL_OPTIONS]
+    for name, label in runs:
+        g = build_graph(name, 0.25)
+        a = color(g, device=dev_cuda, **SMALL_OPTIONS[label])
+        diff = same_result(a, color(g, device="cpu", **SMALL_OPTIONS[label]))
+        if diff or not is_valid_coloring(g, a.colors):
+            fail(f"slice parity: {name} {label} card != cpu or invalid: {diff}")
+    print(f"slice options {list(SMALL_OPTIONS)} on rmat-er, rmat-g, thermal2 "
+          "at 0.25: card == cpu, valid", flush=True)
+    g = overflow_star()
+    for opts in ({}, dict(mode="fused")):
+        reset_counts()
+        a = color(g, device=dev_cuda, **opts)
+        if superstep_tile.launches == 0:
+            fail("overflow star: K3 was not launched")
+        diff = same_result(a, color(g, device="cpu", **opts))
+        if diff or not is_valid_coloring(g, a.colors):
+            fail(f"overflow star {opts}: card != cpu or invalid: {diff}")
+    print(f"slice overflow star n={g.n} dmax={g.max_degree} (K3 in every "
+          "class, both modes): card == cpu", flush=True)
 
 
 # --------------------------------------------------------------------------
-# phase 6: the paper's sizes
+# phase 8: the main paths at full size
 # --------------------------------------------------------------------------
 
+PAPER = ("rmat-er", "rmat-g", "thermal2")
 FULL = {
     "rmat-er": lambda: rmat(1 << 20, 10.0, RMAT_ER, seed=2),
     "rmat-g": lambda: rmat(1 << 20, 10.0, RMAT_G, seed=3),
     "thermal2": lambda: grid2d(3125, 384, diagonals=True),
+    # kkt_power at scale 4: dmax 35,975 passes the packed gather word
+    "kkt_power": lambda: build_graph("kkt_power", 4.0),
 }
+# (label, graph, options, the kernels this path must launch)
+FULL_RUNS = [
+    *((f"ragged {g}", g, {}, (superstep_csr, serial_tail_csr)) for g in PAPER),
+    *((f"classic {g}", g, dict(engine="classic"), (firstfit_tile, conflict_tile))
+      for g in PAPER),
+    *((f"padded {g}", g, dict(engine="padded"), (superstep_tile, serial_tail_csr))
+      for g in PAPER),
+    ("ragged kkt_power s=4", "kkt_power", {}, (superstep_tile,)),
+    ("chunked rmat-er", "rmat-er", dict(coarsen_lanes=65536), (superstep_tile,)),
+    ("fused rmat-er", "rmat-er", dict(mode="fused"), (superstep_csr,)),
+]
 
 
 def kernel_times(g, dev_cuda, plain: bool) -> dict:
@@ -300,6 +493,102 @@ def kernel_times(g, dev_cuda, plain: bool) -> dict:
     return {"k1": k1, "k2": k2}
 
 
+def tile_bound_ms(w: int, W: int, same_lanes: int | None = None,
+                  outs: int = 1) -> float:
+    """Least time to move a tile kernel's bytes over HBM's rate.
+
+    K4 (``same_lanes`` None) reads the (w, W) int32 colour tile and writes
+    ``outs`` (w,) vectors.  K3 and K5 also read the three (w,) row vectors,
+    and the neighbour ids and degrees only on the ``same_lanes`` lanes that
+    hold their row's nonzero colour: no other lane's id or degree decides
+    anything, so this run's data needs no more.
+    """
+    words = w * W + outs * w
+    if same_lanes is not None:
+        words += 3 * w + 2 * same_lanes
+    return 4 * words / HBM_BYTES_PER_S * 1e3
+
+
+def count_same_lanes(my_c, nc) -> int:
+    """Lanes whose neighbour holds the row's nonzero colour."""
+    return int(((nc == my_c[:, None]) & (my_c[:, None] > 0)).sum())
+
+
+def plain_check(name: str, want, got, shape) -> tuple[float, int]:
+    """(plain ms, max |kernel - plain|) with the plain result computed by
+    ``want()``; fails unless they are equal."""
+    t = time.perf_counter()
+    want = want()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    err = max(int((a.int() - b.cpu().int()).abs().max()) if a.numel() else 0
+              for a, b in zip(want, got))
+    if err:
+        fail(f"{name} differs from its plain version at {shape}")
+    return plain_ms, err
+
+
+def k3_times(provider, deg_ext, classes, widths, dev_cuda, plain: bool) -> list:
+    """K3 per class at the first real superstep's inputs (every vertex
+    colored 1, after the bootstrap identity): CUDA-event times, byte bounds
+    and, with ``plain``, the plain version's CPU time and a bit-for-bit
+    check at these shapes."""
+    n = deg_ext.shape[0] - 1
+    colors = torch.ones(n + 1, dtype=torch.int32, device=dev_cuda)
+    colors[n] = 0
+    out = []
+    for cls, W in zip(classes, widths):
+        ids = torch.from_numpy(cls).to(dev_cuda)
+        rows = provider.rows(ids, W)
+        W = int(rows.shape[1])
+        args = (ids, rows, colors[ids.long()], colors[rows.long()],
+                deg_ext[ids.long()], deg_ext[rows.long()])
+        rec = {"W": W, "w": int(cls.size),
+               "ms": event_ms(lambda: superstep_tile(*args), reps=10, warm=2),
+               "bound_ms": tile_bound_ms(cls.size, W, count_same_lanes(args[2], args[3]),
+                                         outs=2)}
+        if plain:
+            cpu = [a.cpu() for a in args]
+            rec["plain_ms"], rec["max_abs_err"] = plain_check(
+                "K3", lambda: superstep_tile_ref(*cpu), superstep_tile(*args),
+                (cls.size, W))
+        out.append(rec)
+        del args, rows
+    return out
+
+
+def k4_k5_times(g, dev_cuda, plain: bool) -> dict:
+    """K4 and K5 at the classic engine's first step: every vertex in one
+    class over the dense table (w = n, W = Δmax).  K4 FirstFits against the
+    all-zero start; K5 then tests the all-ones colouring it produced."""
+    dense = torch.from_numpy(g.padded_adjacency()).to(dev_cuda)
+    deg_ext = torch.from_numpy(
+        np.concatenate([g.degrees, [0]]).astype(np.int32)).to(dev_cuda)
+    n, W = dense.shape
+    ids = torch.arange(n, dtype=torch.int32, device=dev_cuda)
+    zeros = torch.zeros((n + 1,), dtype=torch.int32, device=dev_cuda)
+    ones = torch.ones_like(zeros)
+    ones[n] = 0
+    rows = dense.long()
+    nc0 = zeros[rows]
+    k5_args = (ids, dense, ones[:n], ones[rows], deg_ext[:n], deg_ext[rows])
+    rec = {
+        "K4": {"W": W, "w": n, "bound_ms": tile_bound_ms(n, W),
+               "ms": event_ms(lambda: firstfit_tile(nc0), reps=10, warm=2)},
+        "K5": {"W": W, "w": n,
+               "bound_ms": tile_bound_ms(n, W, count_same_lanes(k5_args[2], k5_args[3])),
+               "ms": event_ms(lambda: conflict_tile(*k5_args), reps=10, warm=2)},
+    }
+    if plain:
+        rec["K4"]["plain_ms"], rec["K4"]["max_abs_err"] = plain_check(
+            "K4", lambda: firstfit_tile_ref(nc0.cpu()), firstfit_tile(nc0), (n, W))
+        cpu = [a.cpu() for a in k5_args]
+        rec["K5"]["plain_ms"], rec["K5"]["max_abs_err"] = plain_check(
+            "K5", lambda: conflict_tile_ref(*cpu), conflict_tile(*k5_args), (n, W))
+    return rec
+
+
 def device_us(event) -> float:
     """A profiler row's own device time (the name changed across torch
     versions)."""
@@ -307,17 +596,19 @@ def device_us(event) -> float:
                    getattr(event, "self_cuda_time_total", 0))
 
 
-def profile_color(g, dev_cuda):
+def profile_color(g, dev_cuda, opts):
     """Device time by kernel for one ``color()`` call, from torch.profiler."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        color(g, device=dev_cuda)
+        color(g, device=dev_cuda, **opts)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
-    rows = [(e.key, device_us(e) / 1e3, e.count)
-            for e in prof.key_averages() if device_us(e) > 0]
+    # device rows only: an aten:: op's row repeats its kernels' device time
+    rows = [(e.key, device_us(e) / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and device_us(e) > 0]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     if not rows:
@@ -325,88 +616,133 @@ def profile_color(g, dev_cuda):
         return
     print(f"  profiler: wall {wall:.3f} ms, device busy {busy:.3f} ms "
           f"({100 * busy / wall:.1f}%), top kernels:")
-    for key, ms, count in rows[:8]:
+    for key, ms, count in rows[:6]:
         print(f"    {ms:10.3f} ms  x{count:<5d} {key[:90]}")
+
+
+def run_full(label, g, opts, kernels, dev_cuda) -> dict:
+    """One main path at full size: the counted run, then three timed runs."""
+    reset_counts()
+    r = color(g, device=dev_cuda, **opts)  # the main path's counted run
+    counts = {k.__name__: k.launches for k in KERNELS}
+    for k in kernels:
+        if counts[k.__name__] == 0:
+            fail(f"full {label}: kernel {k.__name__} was not launched on its path")
+    if not is_valid_coloring(g, r.colors):
+        fail(f"full {label}: coloring is not valid")
+    walls, peaks = [], []
+    for _ in range(3):
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        again = color(g, device=dev_cuda, **opts)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+        peaks.append(torch.cuda.max_memory_allocated())
+        if not np.array_equal(again.colors, r.colors):
+            fail(f"full {label}: a repeated run gave other colors")
+    print(f"full {label} {opts}: iters={r.iterations} colors={r.num_colors} "
+          f"class_cells={r.class_cells}", flush=True)
+    print(f"  color(): median {statistics.median(walls):.3f} ms of "
+          f"{[round(w, 3) for w in walls]}, peak device memory "
+          f"{max(peaks) / 2**20:.1f} MiB, launches "
+          f"{ {k: c for k, c in counts.items() if c} }")
+    profile_color(g, dev_cuda, opts)
+    return {"result": r, "counts": counts}
+
+
+def print_tile_recs(name: str, recs: list):
+    for rec in recs:
+        print(f"  {name} W={rec['W']:5d} w={rec['w']:8d}: {rec['ms']:.4f} ms "
+              f"(bound {rec['bound_ms']:.4f} ms)"
+              + (f", plain {rec['plain_ms']:.1f} ms" if "plain_ms" in rec else ""),
+              flush=True)
 
 
 def check_full(dev_cuda) -> dict:
     totals = {k.__name__: 0 for k in KERNELS}
     times = {}
+    graphs = {}
     for name, make in FULL.items():
         t = time.perf_counter()
-        g = make()
-        gen_s = time.perf_counter() - t
-        reset_counts()
-        r = color(g, device=dev_cuda)  # the main path's counted run
-        counts = {k.__name__: k.launches for k in KERNELS}
-        for k, c in counts.items():
+        graphs[name] = g = make()
+        print(f"graph {name}: n={g.n} nnz={g.m} dmax={g.max_degree} "
+              f"(built in {time.perf_counter() - t:.1f} s)", flush=True)
+    for label, name, opts, kernels in FULL_RUNS:
+        g = graphs[name]
+        out = run_full(label, g, opts, kernels, dev_cuda)
+        for k, c in out["counts"].items():
             totals[k] += c
-            if c == 0:
-                fail(f"full {name}: kernel {k} was not launched on the main path")
-        if not is_valid_coloring(g, r.colors):
-            fail(f"full {name}: coloring is not valid")
-        if name == "rmat-er":
+        r = out["result"]
+        if label == "ragged rmat-er":
             ids = np.arange(g.n)
             want = greedy_serial(g, order=np.lexsort((ids, -g.degrees)))
             if not np.array_equal(want, r.colors):
-                fail(f"full {name}: colors differ from the serial-greedy oracle "
-                     f"in {int((want != r.colors).sum())} vertices")
-        walls, peaks = [], []
-        for _ in range(3):
-            torch.cuda.reset_peak_memory_stats()
-            t = time.perf_counter()
-            again = color(g, device=dev_cuda)
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t) * 1e3)
-            peaks.append(torch.cuda.max_memory_allocated())
-            if not np.array_equal(again.colors, r.colors):
-                fail(f"full {name}: a repeated run gave other colors")
-        kt = kernel_times(g, dev_cuda, plain=(name == "rmat-er"))
-        times[name] = kt
-        print(f"full {name}: n={g.n} nnz={g.m} dmax={g.max_degree} "
-              f"(built in {gen_s:.1f} s) iters={r.iterations} "
-              f"colors={r.num_colors} class_cells={r.class_cells}", flush=True)
-        print(f"  color(): median {statistics.median(walls):.3f} ms of "
-              f"{[round(w, 3) for w in walls]}, peak device memory "
-              f"{max(peaks) / 2**20:.1f} MiB, launches {counts}")
-        for rec in kt["k1"]:
-            print(f"  K1 W={rec['W']:4d} w={rec['w']:8d}: {rec['ms']:.4f} ms "
-                  f"(bound {rec['bound_ms']:.4f} ms)"
-                  + (f", plain {rec['plain_ms']:.1f} ms" if "plain_ms" in rec else ""))
-        k2 = kt["k2"]
-        print(f"  K2 W={k2['W']} T={k2['T']}: {k2['ms']:.3f} ms "
-              f"({1e6 * k2['ms'] / k2['T']:.1f} ns/vertex; byte bound "
-              f"{k2['bound_ms']:.4f} ms)"
-              + (f", plain {k2['plain_ms']:.1f} ms" if "plain_ms" in k2 else ""),
-              flush=True)
-        profile_color(g, dev_cuda)
+                fail(f"full {label}: colors differ from the serial-greedy "
+                     f"oracle in {int((want != r.colors).sum())} vertices")
+        plain = name in ("rmat-er", "kkt_power")
+        if label.startswith("ragged") and name in PAPER:
+            kt = kernel_times(g, dev_cuda, plain=plain)
+            times[label] = kt
+            print_tile_recs("K1", kt["k1"])
+            k2 = kt["k2"]
+            print(f"  K2 W={k2['W']} T={k2['T']}: {k2['ms']:.3f} ms "
+                  f"({1e6 * k2['ms'] / k2['T']:.1f} ns/vertex; byte bound "
+                  f"{k2['bound_ms']:.4f} ms)"
+                  + (f", plain {k2['plain_ms']:.1f} ms" if "plain_ms" in k2 else ""),
+                  flush=True)
+        elif label.startswith("classic"):
+            times[label] = kt = k4_k5_times(g, dev_cuda, plain=plain)
+            print_tile_recs("K4", [kt["K4"]])
+            print_tile_recs("K5", [kt["K5"]])
+        elif label.startswith("padded") or name == "kkt_power":
+            classes, widths = _resolve_classes(g.degrees, (), "auto")
+            csr = DeviceCSR.from_csr(g, dev_cuda)
+            if label.startswith("padded"):
+                provider = DenseRows(
+                    torch.from_numpy(g.padded_adjacency()).to(dev_cuda), csr)
+            else:
+                provider = csr
+            times[label] = recs = k3_times(provider, csr.deg_ext, classes,
+                                           widths, dev_cuda, plain=plain)
+            print_tile_recs("K3", recs)
+            del provider
+        torch.cuda.empty_cache()
     return {"launches": totals, "times": times}
 
 
 def kernels_record(full: dict) -> list:
-    """The kernels' JSON record: launches from the main path's runs, times
-    and bounds at rmat-er's shapes (K1: mean per launch over the first
-    superstep's classes; K2: the stall tail over all n vertices)."""
-    er = full["times"]["rmat-er"]
-    k1 = er["k1"]
+    """The kernels' JSON record: launches from the main paths' runs, times
+    and bounds at their shapes on rmat-er (K1: mean per launch over the
+    first superstep's classes; K2: the stall tail over all n vertices; K3:
+    mean per launch over the padded engine's first-superstep classes; K4
+    and K5: the classic engine's first step)."""
+    t = full["times"]
+    k1, k2 = t["ragged rmat-er"]["k1"], t["ragged rmat-er"]["k2"]
+    k3 = t["padded rmat-er"]
+    k4, k5 = t["classic rmat-er"]["K4"], t["classic rmat-er"]["K5"]
+
+    def entry(name, source, replaces, recs):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": full["launches"][name],
+                "max_abs_err": max(r["max_abs_err"] for r in recs),
+                "ms": statistics.fmean(r["ms"] for r in recs),
+                "plain_ms": statistics.fmean(r["plain_ms"] for r in recs),
+                "bound_ms": statistics.fmean(r["bound_ms"] for r in recs),
+                "bound_by": "bytes", "library_ms": None}
+
+    csr_src = "src/repro_torch/csrc/superstep_csr.cu"
+    tile_src = "src/repro_torch/csrc/tile_kernels.cu"
     return [
-        {"name": "superstep_csr", "route": "cuda",
-         "source": "src/repro_torch/csrc/superstep_csr.cu",
-         "replaces": "src/repro/kernels/superstep/csr_kernel.py:62",
-         "launches": full["launches"]["superstep_csr"],
-         "max_abs_err": max(r["max_abs_err"] for r in k1),
-         "ms": statistics.fmean(r["ms"] for r in k1),
-         "plain_ms": statistics.fmean(r["plain_ms"] for r in k1),
-         "bound_ms": statistics.fmean(r["bound_ms"] for r in k1),
-         "bound_by": "bytes", "library_ms": None},
-        {"name": "serial_tail_csr", "route": "cuda",
-         "source": "src/repro_torch/csrc/superstep_csr.cu",
-         "replaces": "src/repro/kernels/superstep/csr_kernel.py:223",
-         "launches": full["launches"]["serial_tail_csr"],
-         "max_abs_err": er["k2"]["max_abs_err"],
-         "ms": er["k2"]["ms"], "plain_ms": er["k2"]["plain_ms"],
-         "bound_ms": er["k2"]["bound_ms"],
-         "bound_by": "bytes", "library_ms": None},
+        entry("superstep_csr", csr_src,
+              "src/repro/kernels/superstep/csr_kernel.py:62", k1),
+        entry("serial_tail_csr", csr_src,
+              "src/repro/kernels/superstep/csr_kernel.py:223", [k2]),
+        entry("superstep_tile", tile_src,
+              "src/repro/kernels/superstep/kernel.py:39", k3),
+        entry("firstfit_tile", tile_src,
+              "src/repro/kernels/firstfit/kernel.py:28", [k4]),
+        entry("conflict_tile", tile_src,
+              "src/repro/kernels/conflict/kernel.py:23", [k5]),
     ]
 
 
@@ -420,7 +756,7 @@ def main():
     print(f"nvidia-smi: {card}", flush=True)
 
     t = time.perf_counter()
-    logs = build.build()
+    logs = build.build((*build.SOURCES, "latency_probe"))
     print(f"build: {', '.join(logs)} in {time.perf_counter() - t:.1f} s")
     for name, log in logs.items():  # the -Xptxas -v report, per kernel
         for line in log.splitlines():
@@ -428,10 +764,21 @@ def main():
                                            "spill", "smem")):
                 print(f"  {name}: {line.split('ptxas info    :')[-1].strip()}")
 
+    t0 = time.perf_counter()
     check_k1(dev_cuda)
     check_k2(dev_cuda)
+    check_tiles(dev_cuda)
+    lat = check_latency(dev_cuda)
+    print(f"checks took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     check_slice(dev_cuda)
+    print(f"slice took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     full = check_full(dev_cuda)
+    print(f"full took {time.perf_counter() - t0:.1f} s", flush=True)
+    T = full["times"]["ragged rmat-er"]["k2"]["T"]
+    print(f"K2 chain bound at T={T}: {T * lat['l1_ns'] / 1e6:.3f} ms "
+          f"(T x L1 hit), {T * lat['l2_ns'] / 1e6:.3f} ms (T x L2 hit)")
 
     kernels = kernels_record(full)
     print(card)

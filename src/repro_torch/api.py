@@ -4,8 +4,8 @@
     result = repro_torch.color(g)                  # on the card
     result = repro_torch.color(g, device="cpu")    # plain versions, no card
 
-Algorithms self-register with ``@register(name)``.  This slice registers
-``data_driven`` only; the names ``repro`` has beyond it raise
+Algorithms self-register with ``@register(name)``.  The port registers
+``data_driven`` and ``fused``; the names ``repro`` has beyond them raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
@@ -24,7 +24,7 @@ _REGISTRY: dict[str, Callable] = {}
 
 # repro's algorithms that later slices port, with their ROADMAP items
 _NOT_PORTED = {
-    "fused": "A4", "serial": "A5", "topology": "A5", "jp": "A5",
+    "serial": "A5", "topology": "A5", "jp": "A5",
     "multihash": "A5", "threestep": "A5", "distance2": "A8",
     "bipartite": "A8", "dynamic": "A9",
 }

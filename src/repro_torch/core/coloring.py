@@ -1,23 +1,43 @@
 """Data-driven speculative-greedy coloring (paper Alg. 7) in PyTorch.
 
-The port of ``repro.core.coloring``'s default path: the ``ragged`` engine
-in ``workefficient`` mode.  A host loop drives the rotated super-step over
-degree-tiled worklist classes; the adaptive serial tail finishes the run
-(``run_ragged_engine``).  Each class sub-step is one K1 launch
-(``kernels/superstep/csr_kernel.superstep_csr``) and the tail one K2 launch
-(``serial_tail_csr``); on CPU tensors both take their plain versions.
+The port of ``repro.core.coloring``: three engines over one schedule, in
+two modes.
+
+* ``ragged`` (default) — the rotated super-step over CSR storage, with
+  degree-tiled worklist classes and the adaptive serial tail
+  (``run_ragged_engine``).  A class sub-step is one K1 launch
+  (``kernels/superstep/csr_kernel.superstep_csr``) when the worklist is
+  unchunked and degrees fit the packed gather word; otherwise the engine
+  gathers ``(w, W)`` tiles and launches K3 (``kernels/superstep/kernel``).
+  The tail is one K2 launch (``serial_tail_csr``).
+* ``padded`` — the same schedule over the dense ``(n, Δmax)`` adjacency
+  table (``DenseRows``): K3 for every class, K2 for the tail.
+* ``classic`` — the two-phase super-step (``sgr_step``): FirstFit (K4,
+  ``kernels/firstfit``), then ConflictResolve (K5, ``kernels/conflict``)
+  and colour clearing, then compaction.
+
+``mode="workefficient"`` re-slices each class's worklist to the next power
+of two of its live count every step; ``mode="fused"`` dispatches full
+capacity every step (``repro``'s single device program, here a host loop),
+which changes only the work accounting.  On CPU tensors the kernel wrappers
+take their plain versions, and ``ff_apply``/``cr_flags``/the K3 branch take
+``repro``'s pure formulations where ``repro`` does with no kernel backend.
 
 Tensors live on one explicit device.  ``repro``'s arrays are immutable;
 here ``colors_ext`` is updated in place where the reference builds a new
-array, which is safe because a super-step's kernels read only the packed
-snapshot built before any class writes.
+array.  That is safe where the reference's reads and writes meet in the
+same order: a class sub-step's first chunk reads the iteration-start
+snapshot (cloned when several classes share a step), later chunks read the
+accumulating state, and every gather is taken before the write it feeds.
 
-Options outside this slice raise ``NotImplementedError`` naming the
+Options outside the ported slices raise ``NotImplementedError`` naming the
 ROADMAP item that brings them.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+from functools import partial
 
 import numpy as np
 import torch
@@ -25,20 +45,36 @@ import torch
 from repro_torch.api import register
 from repro_torch.core.csr import CSRGraph, DeviceCSR, auto_tile_thresholds, next_pow2
 from repro_torch.core.firstfit import FF_FUNCS
-from repro_torch.core.heuristics import HEURISTICS, conflict_lose_lanes
+from repro_torch.core.heuristics import (
+    HEURISTICS,
+    conflict_lose_flags,
+    conflict_lose_lanes,
+)
 from repro_torch.ingest import PACKED_GATHER_MAX_DEG, packed_gather_ok
+from repro_torch.kernels.conflict.kernel import conflict_tile
 from repro_torch.kernels.dispatch import resolve_backend
+from repro_torch.kernels.firstfit.kernel import firstfit_tile
 from repro_torch.kernels.superstep.csr_kernel import serial_tail_csr, superstep_csr
+from repro_torch.kernels.superstep.kernel import superstep_tile
 
 __all__ = [
     "ColoringResult",
+    "DenseRows",
     "color_data_driven",
+    "color_fused",
     "compact",
+    "cr_flags",
+    "ff_apply",
+    "fused_result",
+    "gather_rows",
     "order_tail",
     "ragged_superstep",
     "resolve_tail_threshold",
+    "run_fused_loop",
     "run_ragged_engine",
+    "run_workefficient_loop",
     "serial_tail_step",
+    "sgr_step",
 ]
 
 # Adaptive tail-serialization: the worklist "stalls" when a super-step
@@ -64,6 +100,53 @@ class ColoringResult:
         return int(self.colors.max(initial=0))
 
 
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether the engine launches kernels for ``t`` (a CUDA tensor)."""
+    return t.device.type == "cuda"
+
+
+# --------------------------------------------------------------------------
+# phase helpers
+# --------------------------------------------------------------------------
+
+def gather_rows(adj: torch.Tensor, ids: torch.Tensor, sentinel: int | None = None):
+    """Gather padded adjacency rows; sentinel ids yield all-sentinel rows.
+
+    Ids are clipped to ``n - 1`` before the gather, as JAX clamps it in
+    ``repro``, and rows of ids ``>= n`` read ``sentinel`` (default ``n``).
+    """
+    n = adj.shape[0]
+    fill = n if sentinel is None else sentinel
+    rows = adj[ids.clamp(0, max(n - 1, 0)).long()]
+    return torch.where((ids < n)[:, None], rows, fill)
+
+
+def ff_apply(adj, colors_ext, ids, kind: str, rows=None):
+    """FirstFit the worklist chunk ``ids`` and write colors (sentinel-safe).
+
+    On the card the FirstFit is one K4 launch; on the CPU it is
+    ``FF_FUNCS[kind]``.  Updates ``colors_ext`` in place.
+    """
+    n = adj.shape[0]
+    rows = gather_rows(adj, ids) if rows is None else rows
+    nc = colors_ext[rows.long()]
+    c = firstfit_tile(nc) if _on_card(ids) else FF_FUNCS[kind](nc)
+    colors_ext[ids.long()] = torch.where(ids < n, c, 0).to(torch.int32)
+    return colors_ext
+
+
+def cr_flags(adj, deg_ext, colors_ext, ids, heuristic: str, rows=None):
+    """Conflict flags for the worklist chunk ``ids`` (True = loses, recolor).
+
+    On the card one K5 launch; on the CPU ``conflict_lose_flags``.
+    """
+    rows = gather_rows(adj, ids) if rows is None else rows
+    idx, ridx = ids.long(), rows.long()
+    args = (ids, rows, colors_ext[idx], colors_ext[ridx], deg_ext[idx],
+            deg_ext[ridx], heuristic)
+    return conflict_tile(*args) if _on_card(ids) else conflict_lose_flags(*args)
+
+
 def compact(ids: torch.Tensor, flags: torch.Tensor, sentinel: int):
     """Prefix-sum worklist compaction (the paper's CUB scan, §3.1).
 
@@ -78,66 +161,104 @@ def compact(ids: torch.Tensor, flags: torch.Tensor, sentinel: int):
     return out[:cap], flags.sum(dtype=torch.int32)
 
 
-def ragged_superstep(provider: DeviceCSR, deg_ext, colors_ext, wl, *,
-                     heuristic: str = "degree", kind: str = "bitset",
-                     colors_read=None, pack_degrees: bool = False,
-                     width: int | None = None):
-    """One rotated super-step: ConflictResolve + FirstFit + compaction.
+def _chunk_bounds(cap: int, nchunks: int):
+    nchunks = max(1, min(nchunks, cap))
+    size = math.ceil(cap / nchunks)
+    return [(i * size, min((i + 1) * size, cap)) for i in range(nchunks)
+            if i * size < cap]
 
-    ``colors_read`` is the snapshot the step reads (the iteration-start
-    colors when several classes share a super-step); writes go to
-    ``colors_ext`` in place.  With ``pack_degrees`` the step is one K1
-    launch over the packed ``color | deg << 16`` words.  Without it (degrees
-    past the packed budget) only the CPU has a formulation here — the
-    gathered-tile kernel K3 that ``repro`` uses there is not ported yet.
+
+# --------------------------------------------------------------------------
+# classic super-step: FirstFit -> ConflictResolve(+clear) -> compaction
+# --------------------------------------------------------------------------
+
+def sgr_step(adj, deg_ext, colors_ext, wl, *, heuristic: str = "degree",
+             kind: str = "bitset", coarsen_ff: int = 1, coarsen_cr: int = 1,
+             reuse_rows: bool = False):
+    """The classic two-phase super-step over the dense table ``adj``.
+
+    FirstFit in ``coarsen_ff`` chunks (later chunks see earlier chunks'
+    colors), then ConflictResolve in ``coarsen_cr`` chunks, each clearing
+    its losers before the next chunk reads; ``reuse_rows`` gathers the rows
+    once for both phases when neither is chunked.  Updates ``colors_ext``
+    in place; returns ``(colors_ext, new_wl, new_count)``.
     """
-    n = colors_ext.shape[0] - 1
-    read = colors_ext if colors_read is None else colors_read
-    width = provider.max_width if width is None else width
-    if pack_degrees:
-        packed = read + (deg_ext << 16)
-        new_c, need = superstep_csr(provider.row_starts, provider.col_padded,
-                                    packed, wl, width, heuristic)
-    elif wl.device.type != "cpu":
-        raise NotImplementedError(
-            f"degrees >= {PACKED_GATHER_MAX_DEG} overflow the packed gather "
-            "word; repro runs the gathered-tile kernel K3 "
-            "(kernels/superstep/kernel.py:superstep_kernel) there, which is "
-            "not ported to CUDA yet (ROADMAP Queue B, K3)")
-    else:
-        rows = provider.rows(wl, width)
-        my_c = read[wl.long()]
-        same, lose_lane = conflict_lose_lanes(
-            wl, rows, my_c, read[rows.long()], deg_ext[wl.long()],
-            deg_ext[rows.long()], heuristic)
-        need = lose_lane.any(dim=1) | (my_c == 0)
-        ff_nc = torch.where(same & ~lose_lane, 0, read[rows.long()])
-        new_c = torch.where(need, FF_FUNCS[kind](ff_nc), my_c)
-    valid = wl < n
-    need = need & valid
-    colors_ext[wl.long()] = torch.where(valid, new_c, 0).to(torch.int32)
-    new_wl, new_count = compact(wl, need, sentinel=n)
+    n = adj.shape[0]
+    cap = wl.shape[0]
+    rows_all = gather_rows(adj, wl) if (
+        reuse_rows and coarsen_ff == 1 and coarsen_cr == 1) else None
+    for lo, hi in _chunk_bounds(cap, coarsen_ff):
+        colors_ext = ff_apply(adj, colors_ext, wl[lo:hi], kind, rows=rows_all)
+    lose_parts = []
+    for lo, hi in _chunk_bounds(cap, coarsen_cr):
+        ids = wl[lo:hi]
+        lose = cr_flags(adj, deg_ext, colors_ext, ids, heuristic, rows=rows_all)
+        idx = ids.long()
+        colors_ext[idx] = torch.where(lose, 0, colors_ext[idx])
+        lose_parts.append(lose)
+    lose = torch.cat(lose_parts) if len(lose_parts) > 1 else lose_parts[0]
+    new_wl, new_count = compact(wl, lose, sentinel=n)
     return colors_ext, new_wl, new_count
 
 
-def _tiled_superstep(provider, deg_ext, colors_ext, wls, *, widths, heuristic,
-                     kind, pack_degrees=False):
-    """One degree-tiled super-step: one sub-step per class.
+# --------------------------------------------------------------------------
+# the rotated super-step — ONE gather serves both phases
+# --------------------------------------------------------------------------
 
-    Every class speculates against the iteration-start snapshot and the
-    classes' writes are disjoint, so the result equals one full-width step
-    over the union worklist.
+def ragged_superstep(provider, deg_ext, colors_ext, wl, *,
+                     heuristic: str = "degree", kind: str = "bitset",
+                     coarsen: int = 1, colors_read=None,
+                     pack_degrees: bool = False, width: int | None = None):
+    """One rotated super-step: ConflictResolve + FirstFit + compaction.
+
+    ``provider.rows(ids, width)`` gives the sentinel-padded ``(w, W)``
+    neighbor tile (a ``DeviceCSR`` class gather or a ``DenseRows`` dense
+    gather).  ``coarsen`` chunks the worklist; later chunks read earlier
+    chunks' writes.  ``colors_read`` is the snapshot the first chunk reads
+    (the iteration-start colors when several classes share a super-step).
+
+    An unchunked step over a ``DeviceCSR`` with ``pack_degrees`` is one K1
+    launch over the packed ``color | deg << 16`` words.  Every other step
+    gathers the tiles and, on the card, launches K3 per chunk; on the CPU it
+    runs ``repro``'s formulation with FirstFit ``kind``.  Updates
+    ``colors_ext`` in place.
     """
-    snapshot = colors_ext.clone() if len(wls) > 1 else None
-    new_wls, counts = [], []
-    for wl_k, w_k in zip(wls, widths):
-        colors_ext, wl_k, cnt_k = ragged_superstep(
-            provider, deg_ext, colors_ext, wl_k, heuristic=heuristic,
-            kind=kind, colors_read=snapshot, pack_degrees=pack_degrees,
-            width=w_k)
-        new_wls.append(wl_k)
-        counts.append(cnt_k)
-    return colors_ext, new_wls, counts
+    n = colors_ext.shape[0] - 1
+    read = colors_ext if colors_read is None else colors_read
+    chunk_bounds = _chunk_bounds(wl.shape[0], coarsen)
+    # the packed words would have to track earlier chunks' writes
+    use_csr = (pack_degrees and len(chunk_bounds) == 1
+               and isinstance(provider, DeviceCSR))
+    need_parts = []
+    for lo, hi in chunk_bounds:
+        ids = wl[lo:hi]
+        if use_csr:
+            packed = read + (deg_ext << 16)
+            new_c, need = superstep_csr(
+                provider.row_starts, provider.col_padded, packed, ids,
+                provider.max_width if width is None else width, heuristic)
+        else:
+            rows = provider.rows(ids, width)
+            idx, ridx = ids.long(), rows.long()
+            my_c, nc = read[idx], read[ridx]
+            my_d, nd = deg_ext[idx], deg_ext[ridx]
+            if _on_card(ids):
+                new_c, need = superstep_tile(ids, rows, my_c, nc, my_d, nd,
+                                             heuristic)
+            else:
+                same, lose_lane = conflict_lose_lanes(ids, rows, my_c, nc,
+                                                      my_d, nd, heuristic)
+                need = lose_lane.any(dim=1) | (my_c == 0)
+                # lanes I beat are provably recoloring too: refit as cleared
+                ff_nc = torch.where(same & ~lose_lane, 0, nc)
+                new_c = torch.where(need, FF_FUNCS[kind](ff_nc), my_c)
+        valid = ids < n
+        need_parts.append(need & valid)
+        colors_ext[ids.long()] = torch.where(valid, new_c, 0).to(torch.int32)
+        read = colors_ext  # later chunks observe earlier chunks' writes
+    need = torch.cat(need_parts) if len(need_parts) > 1 else need_parts[0]
+    new_wl, new_count = compact(wl, need, sentinel=n)
+    return colors_ext, new_wl, new_count
 
 
 def serial_tail_step(row1_fn, colors_ext, wl, kind: str = "bitset"):
@@ -146,8 +267,8 @@ def serial_tail_step(row1_fn, colors_ext, wl, kind: str = "bitset"):
     The row-provider formulation of the tail (``repro``'s ``fori_loop``
     driver): clear the worklist's colors, then refit each vertex in order
     against the current state.  ``row1_fn(v) -> (W,)`` is the sentinel-padded
-    row of one vertex.  Updates ``colors_ext`` in place.  The CSR engine
-    runs the same computation as one K2 launch (``serial_tail_csr``).
+    row of one vertex.  Updates ``colors_ext`` in place.  The engines run
+    the same computation as one K2 launch (``serial_tail_csr``).
     """
     n = colors_ext.shape[0] - 1
     colors_ext[wl.long()] = 0  # sentinel entries write slot n: 0
@@ -192,31 +313,100 @@ def _stalled(iters: int, total: int, prev: int) -> bool:
     return iters >= 3 and total * STALL_DEN >= STALL_NUM * prev
 
 
-def _class_cells(widths, cells_k, tail_width: int, tail_cells: int):
+def _class_cells(acc_widths, cells_k, tail_width: int, tail_cells: int):
     """``ColoringResult.class_cells``: ``(width, cells)`` per class.
 
     Zero-cell classes are dropped; a serial-tail pass adds one final
     full-width entry.  The entries partition ``padded_work``.
     """
-    out = [(int(w), int(c)) for w, c in zip(widths, cells_k) if c]
+    out = [(int(w), int(c)) for w, c in zip(acc_widths, cells_k) if c]
     if tail_cells:
         out.append((int(tail_width), int(tail_cells)))
     return tuple(out)
 
 
-def _dispatch_tail(provider: DeviceCSR, colors_ext, wl, *, width: int):
-    """The serial tail as one K2 launch (plain version on the CPU)."""
-    return serial_tail_csr(provider.row_starts, provider.col_padded,
-                           provider.deg_ext, colors_ext, wl, width)
+# --------------------------------------------------------------------------
+# row providers and the tail
+# --------------------------------------------------------------------------
 
+class DenseRows:
+    """Dense padded-adjacency row provider (the ``padded`` engine layout).
+
+    ``rows``/``row1`` mirror the ``DeviceCSR`` provider protocol; ``width``
+    requests are ignored — a dense table always gathers its full (Δmax)
+    width, which is the bandwidth difference the engines A/B.  ``csr`` is
+    the same graph's ``DeviceCSR``: the serial tail reads it (see
+    ``_dispatch_tail``).
+    """
+
+    def __init__(self, adj: torch.Tensor, csr: DeviceCSR,
+                 sentinel: int | None = None):
+        self.adj = adj
+        self.csr = csr
+        self.sentinel = int(adj.shape[0]) if sentinel is None else int(sentinel)
+
+    @property
+    def device(self) -> torch.device:
+        return self.adj.device
+
+    def rows(self, ids, width: int | None = None):
+        return gather_rows(self.adj, ids, self.sentinel)
+
+    def row1(self, v):
+        n = self.adj.shape[0]
+        v = int(v)
+        if v >= n:
+            return torch.full_like(self.adj[0], self.sentinel)
+        return self.adj[max(v, 0)]
+
+
+def _dispatch_tail(provider, colors_ext, wl, *, width: int):
+    """The serial tail as one K2 launch (its plain version on the CPU).
+
+    K2 walks CSR rows.  For the dense provider it reads the graph's
+    ``DeviceCSR`` rather than the dense table recast as CSR (row starts
+    ``v · Δmax``, which overflow int32 once ``n · Δmax >= 2^31``): a row's
+    first ``deg(v)`` lanes hold the same neighbors in both layouts and the
+    dense pad lanes read color 0, so both compute ``serial_tail_step``'s
+    function — every FirstFit ``kind`` returns the smallest free color.
+    """
+    csr = provider if isinstance(provider, DeviceCSR) else provider.csr
+    return serial_tail_csr(csr.row_starts, csr.col_padded, csr.deg_ext,
+                           colors_ext, wl, width)
+
+
+def _tiled_superstep(provider, deg_ext, colors_ext, wls, *, widths, heuristic,
+                     kind, chunks, pack_degrees=False):
+    """One degree-tiled super-step: one sub-step per class.
+
+    Every class's first chunk reads the iteration-start snapshot and the
+    classes' writes are disjoint, so the result equals one full-width step
+    over the union worklist.
+    """
+    snapshot = colors_ext.clone() if len(wls) > 1 else None
+    new_wls, counts = [], []
+    for wl_k, w_k, c_k in zip(wls, widths, chunks):
+        colors_ext, wl_k, cnt_k = ragged_superstep(
+            provider, deg_ext, colors_ext, wl_k, heuristic=heuristic,
+            kind=kind, coarsen=c_k, colors_read=snapshot,
+            pack_degrees=pack_degrees, width=w_k)
+        new_wls.append(wl_k)
+        counts.append(cnt_k)
+    return colors_ext, new_wls, counts
+
+
+# --------------------------------------------------------------------------
+# the ragged engine (degree-tiled dispatch + adaptive tail)
+# --------------------------------------------------------------------------
 
 def run_ragged_engine(
     *,
     n: int,
-    provider: DeviceCSR,
+    provider,
     deg_ext,
     classes: list,
-    widths: list,
+    tile_widths: list,
+    acc_widths: list,
     tail_width: int,
     mode: str = "workefficient",
     heuristic: str = "degree",
@@ -226,34 +416,24 @@ def run_ragged_engine(
     tail_enabled: bool = True,
     tail_threshold: int = 0,
     max_iters: int,
+    algorithm: str = "data_driven_sgr",
     pack_degrees: bool = False,
     colors_init=None,
 ) -> ColoringResult:
     """Drive the rotated super-step to convergence over degree-tiled classes.
 
     ``classes`` partitions the vertices (wide-first order); class ``k``
-    gathers at ``widths[k]`` and ``padded_work`` charges
-    ``lanes × widths[k]`` cells.  When the live count drops to
+    gathers ``provider.rows(ids, tile_widths[k])`` tiles and ``padded_work``
+    charges ``lanes × acc_widths[k]`` cells.  When the live count drops to
     ``tail_threshold`` or the worklist stalls, the rest goes to ONE serial
     tail over the full-width rows; a stall discards the speculation and
-    re-greedies the whole graph.
+    re-greedies the whole graph.  ``mode`` picks the re-sliced
+    (``workefficient``) or full-capacity (``fused``) schedule.
     """
-    if mode == "fused":
-        raise NotImplementedError(
-            "mode='fused' (the single-program loop) is not ported yet "
-            "(ROADMAP A4)")
-    if mode != "workefficient":
-        raise ValueError(f"unknown mode {mode!r}")
     if colors_init is not None:
         raise NotImplementedError(
             "colors_init= (warm-started recoloring) is not ported yet "
             "(ROADMAP A9)")
-    caps0 = [int(c.shape[0]) for c in classes]
-    if coarsen > 1 or (coarsen_lanes is not None
-                       and coarsen_lanes < max(caps0, default=1)):
-        raise NotImplementedError(
-            "coarsen_ff / coarsen_cr / coarsen_lanes that chunk the worklist "
-            "are not ported yet (ROADMAP A4)")
     if pack_degrees and not packed_gather_ok(tail_width):
         from repro_torch.errors import CapacityError
 
@@ -261,19 +441,44 @@ def run_ragged_engine(
             f"pack_degrees=True with tail_width={tail_width}: degrees must "
             f"stay < {PACKED_GATHER_MAX_DEG} to fit the packed gather word "
             "(color | deg << 16, int32); rerun with pack_degrees=False")
+    if mode not in ("workefficient", "fused"):
+        raise ValueError(f"unknown mode {mode!r}")
     device = provider.device
+    caps0 = [int(c.shape[0]) for c in classes]
+    colors_ext = torch.zeros((n + 1,), dtype=torch.int32, device=device)
     # Bootstrap identity: the first rotated step of an unchunked worklist
     # FirstFits every vertex against an all-zero tile, so everyone takes
     # color 1 and the worklist is unchanged.  Materialize that constant.
     boot_iters = 0
-    colors_ext = torch.zeros((n + 1,), dtype=torch.int32, device=device)
-    if max_iters >= 1:
+    skip_bootstrap = coarsen <= 1 and (
+        coarsen_lanes is None or coarsen_lanes >= max(caps0, default=1))
+    if skip_bootstrap and max_iters >= 1:
         colors_ext[:n] = 1
         boot_iters = 1
-
-    K = len(classes)
     wls = [torch.from_numpy(np.asarray(c, np.int32)).to(device) for c in classes]
-    counts = list(caps0)
+    run = _run_ragged_fused if mode == "fused" else _run_ragged_workefficient
+    return run(n, provider, deg_ext, wls, tile_widths, acc_widths, tail_width,
+               colors_ext, boot_iters, heuristic, kind, coarsen, coarsen_lanes,
+               tail_enabled, tail_threshold, max_iters, algorithm, pack_degrees)
+
+
+def _run_tail(provider, deg_ext, colors_ext, tail, tail_width: int):
+    """Order ``tail`` and run the serial tail over it; returns
+    ``(colors_ext, tail_cells)``."""
+    tail_wl = order_tail(tail, deg_ext)
+    colors_ext = _dispatch_tail(provider, colors_ext, tail_wl, width=tail_width)
+    return colors_ext, int(tail_wl.shape[0]) * tail_width
+
+
+def _run_ragged_workefficient(
+    n, provider, deg_ext, wls, tile_widths, acc_widths, tail_width,
+    colors_ext, boot_iters, heuristic, kind, coarsen, coarsen_lanes,
+    tail_enabled, tail_threshold, max_iters, algorithm, pack_degrees,
+):
+    """The host loop: each class re-sliced to the next pow2 of its count."""
+    K = len(wls)
+    caps = [int(w.shape[0]) for w in wls]
+    counts = list(caps)
     iters = boot_iters
     work = n if boot_iters else 0
     padded = 0
@@ -288,17 +493,20 @@ def run_ragged_engine(
             stalled = True
             break
         prev = total
-        sliced = []
+        sliced, chunk_l = [], []
         for k in range(K):
-            cap = min(next_pow2(max(counts[k], 1)), caps0[k])
+            cap = min(next_pow2(max(counts[k], 1)), caps[k])
             sliced.append(wls[k][:cap])
+            chunk_l.append(max(1, math.ceil(cap / coarsen_lanes))
+                           if coarsen_lanes else coarsen)
             work += counts[k]
             if counts[k]:
-                padded += cap * widths[k]
-                cells_k[k] += cap * widths[k]
+                padded += cap * acc_widths[k]
+                cells_k[k] += cap * acc_widths[k]
         colors_ext, wls, cnts = _tiled_superstep(
-            provider, deg_ext, colors_ext, sliced, widths=widths,
-            heuristic=heuristic, kind=kind, pack_degrees=pack_degrees)
+            provider, deg_ext, colors_ext, sliced, widths=tile_widths,
+            heuristic=heuristic, kind=kind, chunks=chunk_l,
+            pack_degrees=pack_degrees)
         counts = [int(c) for c in cnts]
         iters += 1
         total = sum(counts)
@@ -308,24 +516,143 @@ def run_ragged_engine(
         if stalled:
             # speculation failed to make progress — discard it and run one
             # clean largest-degree-first sequential greedy over the graph
-            tail = torch.arange(n, dtype=torch.int32, device=device)
+            tail = torch.arange(n, dtype=torch.int32, device=colors_ext.device)
         else:
             live = torch.cat([wls[k][:counts[k]] for k in range(K) if counts[k]])
             tail = torch.full((min(next_pow2(total), n),), n, dtype=torch.int32,
-                              device=device)
+                              device=colors_ext.device)
             tail[:total] = live
-        tail_wl = order_tail(tail, deg_ext)
-        colors_ext = _dispatch_tail(provider, colors_ext, tail_wl,
-                                    width=tail_width)
+        colors_ext, tail_cells = _run_tail(provider, deg_ext, colors_ext,
+                                           tail, tail_width)
         work += n if stalled else total
-        tail_cells = int(tail_wl.shape[0]) * tail_width
         padded += tail_cells
         iters += 1
         converged = True
     return ColoringResult(
         colors_ext[:n].cpu().numpy(), iters, work, padded, converged,
-        class_cells=_class_cells(widths, cells_k, tail_width, tail_cells),
+        algorithm=algorithm,
+        class_cells=_class_cells(acc_widths, cells_k, tail_width, tail_cells),
     )
+
+
+def _run_ragged_fused(
+    n, provider, deg_ext, wls, tile_widths, acc_widths, tail_width,
+    colors_ext, boot_iters, heuristic, kind, coarsen, coarsen_lanes,
+    tail_enabled, tail_threshold, max_iters, algorithm, pack_degrees,
+):
+    """``repro``'s single-program schedule (``_fused_spec_loop``) as a host
+    loop: every step dispatches every class at full capacity, so the work
+    accounting charges ``spec_steps × Σ caps × acc_widths`` cells."""
+    K = len(wls)
+    caps = [int(w.shape[0]) for w in wls]
+    # cold runs partition all n vertices, so the initial live count is n
+    init_total = sum(caps)
+    chunks = [coarsen] * K
+    if coarsen_lanes:
+        chunks = [max(1, math.ceil(c / coarsen_lanes)) for c in caps]
+    counts = list(caps)
+    it, work, prev = boot_iters, 0, init_total
+    while True:
+        total = sum(counts)
+        go = total > 0 and it < max_iters
+        if tail_enabled:
+            go = go and total > tail_threshold and not _stalled(it, total, prev)
+        if not go:
+            break
+        prev = total
+        colors_ext, wls, cnts = _tiled_superstep(
+            provider, deg_ext, colors_ext, wls, widths=tile_widths,
+            heuristic=heuristic, kind=kind, chunks=chunks,
+            pack_degrees=pack_degrees)
+        counts = [int(c) for c in cnts]
+        it += 1
+        work += sum(counts)
+    total = sum(counts)
+    iters = it
+    work_items = work + init_total
+    spec_steps = iters - boot_iters
+    cells_k = [spec_steps * c * w for c, w in zip(caps, acc_widths)]
+    padded = sum(cells_k)
+    converged = total == 0
+    tail_cells = 0
+    if total > 0 and iters < max_iters and tail_enabled:
+        stalled = total > tail_threshold and _stalled(iters, total, prev)
+        if stalled:
+            tail = torch.arange(n, dtype=torch.int32, device=colors_ext.device)
+        else:
+            tail = torch.cat(wls) if K > 1 else wls[0]
+        colors_ext, tail_cells = _run_tail(provider, deg_ext, colors_ext,
+                                           tail, tail_width)
+        work_items += n if stalled else total
+        padded += tail_cells
+        iters += 1
+        converged = True
+    return ColoringResult(
+        colors_ext[:n].cpu().numpy(), iters, work_items, padded, converged,
+        algorithm=algorithm,
+        class_cells=_class_cells(acc_widths, cells_k, tail_width, tail_cells),
+    )
+
+
+# --------------------------------------------------------------------------
+# generic loops for the classic step
+# --------------------------------------------------------------------------
+# Both loops are generic over the super-step: ``step(colors_ext, wl) ->
+# (colors_ext, wl, count)``.  The classic engine instantiates them with
+# ``sgr_step``.
+
+def run_fused_loop(step, colors_ext, wl0, count0, max_iters: int):
+    """Full-capacity steps until the worklist empties or ``max_iters``.
+
+    Returns ``(colors_ext, wl, count, iters, work)`` where ``work`` is the
+    sum of post-step live counts (the first full-capacity step is charged by
+    the caller, matching the paper's work accounting).
+    """
+    wl, count = wl0, int(count0)
+    it = work = 0
+    while count > 0 and it < max_iters:
+        colors_ext, wl, cnt = step(colors_ext, wl)
+        count = int(cnt)
+        it += 1
+        work += count
+    return colors_ext, wl, count, it, work
+
+
+def fused_result(colors_ext, n: int, count, it, work, width: int = 1,
+                 algorithm: str = "data_driven_sgr") -> ColoringResult:
+    """Shared result assembly for fused loops (paper work accounting).
+
+    Every super-step dispatches full capacity, so ``padded_work`` is
+    ``iters * n * width`` gather cells and the first step's n live items are
+    charged on top of the post-step counts accumulated in ``work``.
+    """
+    iters = int(it)
+    return ColoringResult(
+        colors_ext[:n].cpu().numpy(),
+        iters,
+        int(work) + n,
+        iters * n * width,
+        converged=int(count) == 0,
+        algorithm=algorithm,
+    )
+
+
+def run_workefficient_loop(step, colors_ext, wl0, count0: int, max_iters: int):
+    """Host loop re-slicing the worklist to the next pow2 of the live count.
+
+    Returns ``(colors_ext, iters, work, padded, converged)``; ``padded``
+    counts dispatched lanes (multiply by the tile width for gather cells).
+    """
+    wl, count = wl0, int(count0)
+    iters = work = padded = 0
+    while count > 0 and iters < max_iters:
+        cap = min(next_pow2(count), wl.shape[0])
+        colors_ext, wl, cnt = step(colors_ext, wl[:cap])
+        work += count
+        padded += cap
+        count = int(cnt)
+        iters += 1
+    return colors_ext, iters, work, padded, count == 0
 
 
 def _resolve_classes(degrees: np.ndarray, buckets, tiling):
@@ -366,24 +693,115 @@ def _resolve_classes(degrees: np.ndarray, buckets, tiling):
     return [p[0] for p in pairs], [p[1] for p in pairs]
 
 
-def _device_csr(g: CSRGraph, device: torch.device) -> DeviceCSR:
-    """``DeviceCSR.from_csr(g, device)``, memoized on the (frozen) graph.
+def _graph_device_cache(g: CSRGraph, key: str, device: torch.device, build):
+    """Memoize a device view of the (frozen) host graph per ``(key, device)``.
 
-    The host graph is immutable, so its device form is a pure function of
-    the object and the device: repeated ``color()`` calls skip the upload,
-    as ``repro`` caches its device views on the graph.
+    The host graph is immutable, so its device forms (the CSR arrays, the
+    dense table) are pure functions of the object and the device: repeated
+    ``color()`` calls skip the upload, as ``repro`` caches its device views
+    on the graph.
     """
     cache = getattr(g, "_device_cache", None)
     if cache is None:
         cache = {}
         object.__setattr__(g, "_device_cache", cache)
-    if device not in cache:
-        cache[device] = DeviceCSR.from_csr(g, device)
-    return cache[device]
+    if (key, device) not in cache:
+        cache[key, device] = build()
+    return cache[key, device]
 
 
-_ENGINE_ITEMS = {"padded": "A4", "classic": "A4", "sharded": "A11"}
+def _device_csr(g: CSRGraph, device: torch.device) -> DeviceCSR:
+    return _graph_device_cache(g, "dcsr", device,
+                               lambda: DeviceCSR.from_csr(g, device))
 
+
+def _dense_adjacency(g: CSRGraph, device: torch.device) -> torch.Tensor:
+    """The ``(n, Δmax)`` padded adjacency on ``device`` (cached)."""
+    return _graph_device_cache(
+        g, "dense", device,
+        lambda: torch.from_numpy(g.padded_adjacency()).to(device))
+
+
+# --------------------------------------------------------------------------
+# the classic engine
+# --------------------------------------------------------------------------
+
+def _prepare(g: CSRGraph, buckets, device):
+    """Dense tables (one width per class), degrees and the classes."""
+    dense = _dense_adjacency(g, device)
+    deg_ext = _device_csr(g, device).deg_ext
+    if buckets:
+        classes = g.degree_buckets(buckets)
+        bounds = list(buckets) + [max(g.max_degree, 1)]
+        widths = [min(max(hi, 1), dense.shape[1]) for hi in bounds]
+        # large-degree classes first (aligns with the degree heuristic)
+        order = np.argsort([-w for w in widths], kind="stable")
+        classes = [classes[i] for i in order]
+        widths = [widths[i] for i in order]
+    else:
+        classes = [np.arange(g.n, dtype=np.int32)]
+        widths = [dense.shape[1]]
+    return [dense[:, :w] for w in widths], deg_ext, classes
+
+
+def _color_classic(g, heuristic, firstfit, coarsen_ff, coarsen_cr,
+                   coarsen_lanes, buckets, mode, max_iters, reuse_rows, device):
+    """The two-phase engine (FirstFit kernel + ConflictResolve kernel)."""
+    n = g.n
+    adjs, deg_ext, classes = _prepare(g, buckets, device)
+    colors_ext = torch.zeros((n + 1,), dtype=torch.int32, device=device)
+    if mode == "fused":
+        if buckets:  # an assert in repro
+            raise ValueError(
+                "classic fused mode runs single-class (full-width) only")
+        return _run_fused(n, adjs[0], deg_ext, colors_ext, heuristic, firstfit,
+                          coarsen_ff, coarsen_cr, max_iters, reuse_rows)
+    if mode != "workefficient":
+        raise ValueError(f"unknown mode {mode!r}")
+
+    widths = [int(a.shape[1]) for a in adjs]
+    # per-class worklists (class membership is static: degrees never change)
+    wls = [torch.from_numpy(ids).to(device) for ids in classes]
+    counts = [int(ids.shape[0]) for ids in classes]
+    iters = work = padded = 0
+    while sum(counts) > 0 and iters < max_iters:
+        new_wls, new_counts = [], []
+        for k, (wl, count, adj_k) in enumerate(zip(wls, counts, adjs)):
+            if count == 0:
+                new_wls.append(wl[:1])
+                new_counts.append(0)
+                continue
+            cap = min(next_pow2(count), wl.shape[0])
+            if coarsen_lanes:
+                coarsen_ff = max(1, math.ceil(cap / coarsen_lanes))
+            colors_ext, wl_out, cnt = sgr_step(
+                adj_k, deg_ext, colors_ext, wl[:cap], heuristic=heuristic,
+                kind=firstfit, coarsen_ff=coarsen_ff, coarsen_cr=coarsen_cr,
+                reuse_rows=reuse_rows)
+            work += count
+            padded += cap * widths[k]
+            new_wls.append(wl_out)
+            new_counts.append(int(cnt))
+        wls, counts = new_wls, new_counts
+        iters += 1
+    return ColoringResult(colors_ext[:n].cpu().numpy(), iters, work, padded,
+                          converged=sum(counts) == 0)
+
+
+def _run_fused(n, adj, deg_ext, colors_ext, heuristic, kind, coarsen_ff,
+               coarsen_cr, max_iters, reuse_rows=False):
+    step = partial(sgr_step, adj, deg_ext, heuristic=heuristic, kind=kind,
+                   coarsen_ff=coarsen_ff, coarsen_cr=coarsen_cr,
+                   reuse_rows=reuse_rows)
+    wl0 = torch.arange(n, dtype=torch.int32, device=colors_ext.device)
+    colors_ext, _, count, it, work = run_fused_loop(step, colors_ext, wl0, n,
+                                                    max_iters)
+    return fused_result(colors_ext, n, count, it, work, width=int(adj.shape[1]))
+
+
+# --------------------------------------------------------------------------
+# entry points
+# --------------------------------------------------------------------------
 
 @register("data_driven")
 def color_data_driven(
@@ -397,6 +815,7 @@ def color_data_driven(
     buckets: tuple[int, ...] = (),
     mode: str = "workefficient",
     max_iters: int | None = None,
+    reuse_rows: bool = False,
     engine: str = "ragged",
     tiling="auto",
     tail_serial="auto",
@@ -406,17 +825,19 @@ def color_data_driven(
 ) -> ColoringResult:
     """Color ``g`` with the paper's optimized data-driven SGR algorithm.
 
-    ``device`` defaults to ``"cuda"``: the super-steps run K1 and the tail
-    K2 on the card.  ``device="cpu"`` runs their plain versions.  Results
-    equal ``repro.color(g)``'s field for field (colors, iterations,
-    work_items, padded_work, class_cells, converged).
+    ``engine`` is ``ragged`` (CSR storage, the default), ``padded`` (the
+    same schedule over the dense table) or ``classic`` (the two-phase
+    super-step); ``mode`` is ``workefficient`` or ``fused``.  ``device``
+    defaults to ``"cuda"``, where the engines launch K1–K5; ``device="cpu"``
+    runs their plain versions.  Results equal ``repro.color(g, ...)``'s
+    field for field (colors, iterations, work_items, padded_work,
+    class_cells, converged, algorithm).
     """
     device = resolve_backend(backend, device)
-    if engine != "ragged":
-        if engine in _ENGINE_ITEMS:
-            raise NotImplementedError(
-                f"engine={engine!r} is not ported yet "
-                f"(ROADMAP {_ENGINE_ITEMS[engine]})")
+    if engine == "sharded":
+        raise NotImplementedError(
+            "engine='sharded' is not ported yet (ROADMAP A11)")
+    if engine not in ("ragged", "padded", "classic"):
         raise ValueError(
             f"unknown engine {engine!r}; options: ragged, padded, classic, "
             "sharded")
@@ -430,16 +851,26 @@ def color_data_driven(
     if n == 0:
         return ColoringResult(np.zeros(0, np.int32), 0, 0, 0, True)
     max_iters = max_iters or n + 1
+    if engine == "classic":
+        return _color_classic(g, heuristic, firstfit, coarsen_ff, coarsen_cr,
+                              coarsen_lanes, buckets, mode, max_iters,
+                              reuse_rows, device)
     classes, widths = _resolve_classes(g.degrees, buckets, tiling)
     dmax = max(g.max_degree, 1)
-    provider = _device_csr(g, device)
+    csr = _device_csr(g, device)
+    if engine == "ragged":
+        provider, tile_widths, acc_widths = csr, widths, widths
+    else:
+        provider = DenseRows(_dense_adjacency(g, device), csr)
+        tile_widths, acc_widths = [None] * len(widths), [dmax] * len(widths)
     tail_enabled, thr = resolve_tail_threshold(tail_serial, n)
     return run_ragged_engine(
         n=n,
         provider=provider,
-        deg_ext=provider.deg_ext,
+        deg_ext=csr.deg_ext,
         classes=classes,
-        widths=widths,
+        tile_widths=tile_widths,
+        acc_widths=acc_widths,
         tail_width=dmax,
         mode=mode,
         heuristic=heuristic,
@@ -451,3 +882,10 @@ def color_data_driven(
         max_iters=max_iters,
         pack_degrees=packed_gather_ok(dmax),
     )
+
+
+@register("fused")
+def color_fused(g: CSRGraph, **opts) -> ColoringResult:
+    """``data_driven`` with every super-step at full capacity (``mode="fused"``)."""
+    opts.pop("mode", None)
+    return color_data_driven(g, mode="fused", **opts)

@@ -26,6 +26,7 @@ __all__ = [
     "auto_tile_thresholds",
     "csr_from_edges",
     "next_pow2",
+    "padded_ragged",
 ]
 
 
@@ -72,9 +73,56 @@ class CSRGraph:
     def max_degree(self) -> int:
         return int(self.degrees.max(initial=0))
 
+    def padded_adjacency(
+        self, width: int | None = None, *, allow_truncate: bool = False
+    ) -> np.ndarray:
+        """Dense ``(n, width)`` adjacency; padding slots hold the sentinel ``n``.
+
+        ``width < max_degree`` would silently drop neighbors and corrupt any
+        coloring built on the view, so it raises unless the caller opts in
+        with ``allow_truncate=True``.
+        """
+        width = max(self.max_degree, 1) if width is None else int(width)
+        if width < self.max_degree and not allow_truncate:
+            raise ValueError(
+                f"width={width} < max_degree={self.max_degree} would silently "
+                f"drop neighbors; pass allow_truncate=True if that is intended"
+            )
+        return padded_ragged(self.row_offsets, self.col_indices, width, self.n)
+
+    def degree_buckets(self, thresholds) -> list[np.ndarray]:
+        """Vertex-id arrays per degree class: (0, t0], (t0, t1], ..., (tk-1, inf)."""
+        deg = self.degrees
+        out, lo = [], 0
+        bounds = list(thresholds) + [max(self.max_degree, 1)]
+        for hi in bounds:
+            out.append(np.where((deg > lo) & (deg <= hi))[0].astype(np.int32))
+            lo = hi
+        # degree-0 vertices go to the first bucket (they take color 1 trivially)
+        zero = np.where(deg == 0)[0].astype(np.int32)
+        if zero.size:
+            out[0] = np.concatenate([zero, out[0]])
+        return out
+
     def edges(self) -> tuple[np.ndarray, np.ndarray]:
         src = np.repeat(np.arange(self.n, dtype=np.int32), self.degrees)
         return src, self.col_indices.astype(np.int32)
+
+
+def padded_ragged(row_offsets: np.ndarray, col_indices: np.ndarray, width: int,
+                  sentinel: int) -> np.ndarray:
+    """Dense ``(n_rows, width)`` fill of a ragged CSR; pads hold ``sentinel``."""
+    n_rows = row_offsets.shape[0] - 1
+    m = col_indices.shape[0]
+    out = np.full((n_rows, width), sentinel, dtype=np.int32)
+    if m == 0:
+        return out
+    deg = np.diff(row_offsets)
+    rows = np.repeat(np.arange(n_rows, dtype=np.int64), deg)
+    within = np.arange(m, dtype=np.int64) - row_offsets[rows]
+    keep = within < width
+    out[rows[keep], within[keep]] = col_indices[keep]
+    return out
 
 
 def csr_from_edges(

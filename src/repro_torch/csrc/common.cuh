@@ -1,0 +1,86 @@
+// What the port's kernels share: the loser rule of K1, K3 and K5, the
+// warp-level FirstFit of K1, K2, K3 and K4 (superstep_csr.cu,
+// tile_kernels.cu), and the pieces every kernel library has. Each csrc/*.cu builds into a library of
+// its own (repro_torch/kernels/build.py), so the extern "C" function below
+// is defined once per library.
+//
+// FirstFit: the smallest colour in [1, W+1] absent from a row of colours.
+// Colours 1..32 are kept as a per-lane register mask OR-reduced across the
+// warp; __ffs on its complement gives the answer unless all 32 are taken.
+// Only then does the warp read its row again into a per-warp bitset of
+// (W+1+31)/32 words in shared memory and reduce the first free bit across
+// lanes, so any width works whose bitsets fit a block's shared memory.
+#pragma once
+
+#include <climits>
+#include <cstddef>
+#include <cuda_runtime.h>
+
+namespace repro {
+
+constexpr unsigned kFull = 0xffffffffu;
+
+// Does neighbour u (degree du) beat vertex v (degree dv) when both hold the
+// same colour? id rule: v loses when v < u. degree rule: the larger degree
+// wins, ties to the smaller id.
+template <bool kDegreeRule>
+__device__ __forceinline__ bool beats(int u, int du, int v, int dv) {
+  return kDegreeRule ? (du > dv || (du == dv && u < v)) : (v < u);
+}
+
+// bit of colour c in the register mask of colours 1..32 (0 outside it)
+__device__ __forceinline__ unsigned low_bit(int c) {
+  return (c >= 1 && c <= 32) ? (1u << (c - 1)) : 0u;
+}
+
+// 32-bit words of one warp's FirstFit bitset at width W
+__host__ __device__ __forceinline__ int bitset_words(int W) {
+  return (W + 1 + 31) >> 5;
+}
+
+// Smallest colour in [1, W+1] absent from { color_of(j) : 0 <= j < d }.
+// `m` is the warp-reduced mask of colours 1..32 already seen. All 32 lanes
+// call this together and all get the answer. `words` is the warp's scratch
+// bitset of bitset_words(W) words; only words 1.. are used, and only when
+// colours 1..32 are all taken. Needs d <= W, so a free colour exists.
+template <class ColorOf>
+__device__ __forceinline__ int first_fit(unsigned m, const ColorOf& color_of,
+                                         int d, int W, unsigned* words) {
+  const int lane = threadIdx.x & 31;
+  const unsigned cand0 = W >= 31 ? kFull : ((1u << (W + 1)) - 1u);
+  const unsigned free0 = ~m & cand0;
+  if (free0) return __ffs(free0);
+  const int nwords = bitset_words(W);
+  for (int k = 1 + lane; k < nwords; k += 32) words[k] = 0u;
+  __syncwarp();
+  for (int j = lane; j < d; j += 32) {
+    const int c = color_of(j);
+    if (c > 32 && c <= W + 1) atomicOr(&words[(c - 1) >> 5], 1u << ((c - 1) & 31));
+  }
+  __syncwarp();
+  int best = INT_MAX;
+  for (int k = 1 + lane; k < nwords; k += 32) {
+    unsigned f = ~words[k];
+    const int hi = W - 32 * k;  // last candidate bit in word k (>= 0)
+    if (hi < 31) f &= (2u << hi) - 1u;
+    if (f) best = min(best, 32 * k + __ffs(f) - 1);
+  }
+  best = __reduce_min_sync(kFull, best);
+  __syncwarp();  // the scratch words are reused by the next call
+  return best + 1;
+}
+
+// Lets `kernel` take `smem` bytes of dynamic shared memory (needed above
+// 48 KB). Returns a cudaError_t.
+template <class Kernel>
+inline int allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
+}
+
+}  // namespace repro
+
+extern "C" const char* repro_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -24,12 +24,12 @@
 //   Design: one warp per worklist vertex, lanes striding over the row, so a
 //   row's C reads coalesce and the packed[u] gathers of a row are in flight
 //   together. The loser test runs per lane and __any_sync reduces `need`.
-//   Colours 1..32 are kept as a per-lane register mask OR-reduced across
-//   the warp (__reduce_or_sync); __ffs on its complement gives the answer
-//   unless all 32 are taken. Only then (W >= 32) does the warp re-read its
-//   row into a per-warp bitset of (W+1+31)/32 words in shared memory and
-//   reduce the first free bit across lanes. So any W up to
-//   PACKED_GATHER_MAX_DEG - 1 = 32766 works (at most 1024 words a warp).
+//   FirstFit is common.cuh's (shared with K2, K3 and K4): colours 1..32
+//   in a per-lane register mask OR-reduced across the warp
+//   (__reduce_or_sync), __ffs on its complement, and only when all 32 are
+//   taken (W >= 32) a per-warp bitset of (W+1+31)/32 words in shared
+//   memory. So any W up to PACKED_GATHER_MAX_DEG - 1 = 32766 works (at
+//   most 1024 words a warp).
 //
 //   Sentinels: worklists are padded with n; packed[n] == 0, so a sentinel
 //   has degree 0 and colour 0 and reads no row. The caller masks
@@ -65,49 +65,15 @@
 //   warp's next reads.
 // ---------------------------------------------------------------------------
 
-#include <climits>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
+using repro::first_fit;
+using repro::kFull;
+using repro::low_bit;
+
 constexpr int kWarpsPerBlock = 8;  // K1: one worklist vertex per warp
-
-__device__ __forceinline__ unsigned low_bit(int c) {
-  return (c >= 1 && c <= 32) ? (1u << (c - 1)) : 0u;
-}
-
-// Smallest colour in [1, W+1] absent from { color_of(j) : 0 <= j < d }.
-// `m` is the warp-reduced mask of colours 1..32 already seen. All 32 lanes
-// call this together and all get the answer. `words` is the warp's scratch
-// bitset of (W+1+31)/32 words; only words 1.. are used, and only when
-// colours 1..32 are all taken. Needs d <= W, so a free colour exists.
-template <class ColorOf>
-__device__ __forceinline__ int first_fit(unsigned m, const ColorOf& color_of,
-                                         int d, int W, unsigned* words) {
-  const int lane = threadIdx.x & 31;
-  const unsigned cand0 = W >= 31 ? kFull : ((1u << (W + 1)) - 1u);
-  const unsigned free0 = ~m & cand0;
-  if (free0) return __ffs(free0);
-  const int nwords = (W + 1 + 31) >> 5;
-  for (int k = 1 + lane; k < nwords; k += 32) words[k] = 0u;
-  __syncwarp();
-  for (int j = lane; j < d; j += 32) {
-    const int c = color_of(j);
-    if (c > 32 && c <= W + 1) atomicOr(&words[(c - 1) >> 5], 1u << ((c - 1) & 31));
-  }
-  __syncwarp();
-  int best = INT_MAX;
-  for (int k = 1 + lane; k < nwords; k += 32) {
-    unsigned f = ~words[k];
-    const int hi = W - 32 * k;  // last candidate bit in word k (>= 0)
-    if (hi < 31) f &= (2u << hi) - 1u;
-    if (f) best = min(best, 32 * k + __ffs(f) - 1);
-  }
-  best = __reduce_min_sync(kFull, best);
-  __syncwarp();  // the scratch words are reused by the next call
-  return best + 1;
-}
 
 template <bool kDegreeRule>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
@@ -120,7 +86,7 @@ superstep_csr_kernel(const int* __restrict__ wl, const int* __restrict__ row_sta
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * kWarpsPerBlock + warp;
   if (i >= w) return;  // whole warps leave together
-  unsigned* words = smem + warp * ((W + 1 + 31) >> 5);
+  unsigned* words = smem + warp * repro::bitset_words(W);
 
   const int v = wl[i];
   const int mypk = packed[v];  // sentinel n -> 0: colour 0, degree 0
@@ -135,7 +101,7 @@ superstep_csr_kernel(const int* __restrict__ wl, const int* __restrict__ row_sta
     const int nc = upk & 0xFFFF;
     if (my_c > 0 && nc == my_c) {
       const int nd = upk >> 16;
-      const bool l = kDegreeRule ? (nd > my_d || (nd == my_d && u < v)) : (v < u);
+      const bool l = repro::beats<kDegreeRule>(u, nd, v, my_d);
       *lose = *lose || l;
       return l ? nc : 0;
     }
@@ -206,7 +172,7 @@ int repro_superstep_csr(const void* wl, const void* row_starts, const void* col,
                         const void* packed, void* newc, void* need, int w, int W,
                         int n, int degree_rule, void* stream) {
   if (w <= 0) return 0;
-  const size_t smem = size_t(kWarpsPerBlock) * ((W + 1 + 31) / 32) * sizeof(unsigned);
+  const size_t smem = size_t(kWarpsPerBlock) * repro::bitset_words(W) * sizeof(unsigned);
   const dim3 grid((w + kWarpsPerBlock - 1) / kWarpsPerBlock);
   const dim3 block(kWarpsPerBlock * 32);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -228,22 +194,13 @@ int repro_serial_tail_csr(const void* wl, const void* starts, const void* degs,
                           const void* col, void* colors, int T, int W, int n,
                           void* stream) {
   if (T <= 0) return 0;
-  const size_t smem = size_t((W + 1 + 31) / 32) * sizeof(unsigned);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        serial_tail_csr_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const size_t smem = size_t(repro::bitset_words(W)) * sizeof(unsigned);
+  if (const int e = repro::allow_smem(serial_tail_csr_kernel, smem)) return e;
   serial_tail_csr_kernel<<<1, 32, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(wl), static_cast<const int*>(starts),
       static_cast<const int*>(degs), static_cast<const int*>(col),
       static_cast<int*>(colors), T, W, n);
   return static_cast<int>(cudaGetLastError());
-}
-
-const char* repro_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

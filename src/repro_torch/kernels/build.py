@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first
 use into ``build/lib<name>-<digest>.so`` beside this package (the digest
-covers the source and the flags, so an edited source rebuilds).  ``build``
+covers the source, the shared ``csrc/*.cuh`` headers and the flags, so an
+edited source or header rebuilds).  ``build``
 starts one ``nvcc`` per source, all at once, and waits for them; the
 ``-Xptxas -v`` report (registers, shared memory, spills) is kept in a
 ``.log`` next to each library.  Nothing is built when a module is imported.
@@ -21,7 +22,7 @@ __all__ = ["BUILD_DIR", "NVCC_FLAGS", "SOURCES", "build", "load"]
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
-SOURCES = ("superstep_csr",)
+SOURCES = ("superstep_csr", "tile_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,9 +40,11 @@ def _nvcc() -> str:
 
 
 def _library(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -75,10 +78,17 @@ def build(names=SOURCES) -> dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
+    """The loaded library for ``csrc/<name>.cu``, building it if needed.
+
+    Every library has ``repro_cuda_error_string`` (``csrc/common.cuh``);
+    its signature is declared here, the kernels' by their wrappers.
+    """
     if name not in _LIBS:
-        lib = _library(name)
-        if not lib.exists():
+        path = _library(name)
+        if not path.exists():
             build((name,))
-        _LIBS[name] = ctypes.CDLL(str(lib))
+        lib = ctypes.CDLL(str(path))
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        _LIBS[name] = lib
     return _LIBS[name]

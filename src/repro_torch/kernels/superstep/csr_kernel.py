@@ -29,6 +29,7 @@ from repro_torch.core.firstfit import firstfit_bitset
 from repro_torch.core.heuristics import HEURISTICS, conflict_lose_lanes
 from repro_torch.ingest import PACKED_GATHER_MAX_DEG
 from repro_torch.kernels import build
+from repro_torch.kernels.cuda import MAX_SMEM, check, on_cpu, stream
 
 __all__ = [
     "serial_tail_csr",
@@ -38,8 +39,6 @@ __all__ = [
 ]
 
 _LIB = "superstep_csr"
-# shared memory one block may use (H100: 227 KB) — K2 keeps W+1 bits in it
-_MAX_SMEM = 227 * 1024
 
 
 @functools.cache
@@ -51,36 +50,15 @@ def _lib() -> ctypes.CDLL:
     lib.repro_superstep_csr.restype = i32
     lib.repro_serial_tail_csr.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
     lib.repro_serial_tail_csr.restype = i32
-    lib.repro_cuda_error_string.argtypes = [i32]
-    lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(lib: ctypes.CDLL, rc: int, what: str) -> None:
-    if rc:
-        msg = lib.repro_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
-
-
 def _on_cpu(*tensors: torch.Tensor) -> bool:
-    """True for CPU tensors, False for CUDA ones; raises on a mix."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return True
-    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
-        for t in tensors:
-            if t.dtype != torch.int32 or not t.is_contiguous() or t.dim() != 1:
-                raise ValueError(
-                    "the CUDA kernels take contiguous 1-D int32 tensors, got "
-                    f"{t.dtype} of shape {tuple(t.shape)}")
-        return False
-    raise ValueError(
-        f"tensors must all lie on the CPU or all on one CUDA device, got "
-        f"{sorted(str(t.device) for t in tensors)}")
-
-
-def _stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    """``cuda.on_cpu`` for the 1-D arrays K1 and K2 take."""
+    for t in tensors:
+        if t.dim() != 1:
+            raise ValueError(f"K1 and K2 take 1-D tensors, got shape {tuple(t.shape)}")
+    return on_cpu(*tensors)
 
 
 # --------------------------------------------------------------------------
@@ -145,9 +123,9 @@ def superstep_csr(row_starts, col_padded, packed, wl, W: int,
     rc = lib.repro_superstep_csr(
         wl.data_ptr(), row_starts.data_ptr(), col_padded.data_ptr(),
         packed.data_ptr(), newc.data_ptr(), need.data_ptr(),
-        w, int(W), n, int(heuristic == "degree"), _stream(wl.device))
+        w, int(W), n, int(heuristic == "degree"), stream(wl.device))
     superstep_csr.launches += 1
-    _check(lib, rc, "superstep_csr")
+    check(lib, rc, "superstep_csr")
     return newc, need.bool()
 
 
@@ -203,7 +181,7 @@ def serial_tail_csr(row_starts, col_padded, deg_ext, colors_ext, wl, W: int):
     if cpu:
         return serial_tail_csr_ref(row_starts, col_padded, deg_ext, colors_ext,
                                    wl, W)
-    if (int(W) + 32) // 32 * 4 > _MAX_SMEM:
+    if (int(W) + 32) // 32 * 4 > MAX_SMEM:
         raise ValueError(f"tail width W={W} needs more shared memory than a block has")
     if colors_ext.shape[0] != n + 1:
         raise ValueError(
@@ -214,9 +192,9 @@ def serial_tail_csr(row_starts, col_padded, deg_ext, colors_ext, wl, W: int):
     lib = _lib()
     rc = lib.repro_serial_tail_csr(
         wl.data_ptr(), starts.data_ptr(), degs.data_ptr(), col_padded.data_ptr(),
-        colors_ext.data_ptr(), T, int(W), n, _stream(wl.device))
+        colors_ext.data_ptr(), T, int(W), n, stream(wl.device))
     serial_tail_csr.launches += 1
-    _check(lib, rc, "serial_tail_csr")
+    check(lib, rc, "serial_tail_csr")
     return colors_ext
 
 

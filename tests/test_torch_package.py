@@ -20,18 +20,22 @@ from repro_torch.core.coloring import order_tail, run_ragged_engine
 from repro_torch.core.csr import CSRGraph, DeviceCSR, csr_from_edges
 from repro_torch.errors import CapacityError
 from repro_torch.graphs import build_graph, erdos_renyi, grid2d, power_law
+from repro_torch.kernels.conflict.kernel import conflict_tile, conflict_tile_ref
+from repro_torch.kernels.firstfit.kernel import firstfit_tile, firstfit_tile_ref
 from repro_torch.kernels.superstep.csr_kernel import (
     serial_tail_csr,
     serial_tail_csr_ref,
     superstep_csr,
     superstep_csr_ref,
 )
+from repro_torch.kernels.superstep.kernel import superstep_tile, superstep_tile_ref
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 FIELDS = ("iterations", "work_items", "padded_work", "class_cells", "converged")
-KERNELS = (superstep_csr, serial_tail_csr)
+KERNELS = (superstep_csr, serial_tail_csr, superstep_tile, firstfit_tile,
+           conflict_tile)
 
 
 @pytest.fixture
@@ -76,6 +80,24 @@ def _k1_inputs(seed=5):
     return g, dev, packed, wl
 
 
+def _tile_inputs(W, seed=6, w=300, n=1000):
+    """Random ``(ids, nid, my_c, nc, my_d, nd)`` for K3 and K5 (K4 takes
+    ``nc``): small colours that clash, sentinel rows, and rows holding every
+    colour in 1..W (answer W + 1, through the shared-bitset path)."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, n, w).astype(np.int32)
+    ids[-5:] = n
+    nid = rng.integers(0, n + 1, (w, W)).astype(np.int32)
+    nc = rng.integers(0, 6, (w, W)).astype(np.int32)
+    nc[:6] = rng.permutation(W)[None, :] + 1
+    nd = rng.integers(0, 7, (w, W)).astype(np.int32)
+    my_c = rng.integers(0, 6, w).astype(np.int32)
+    my_c[:6:2] = 0
+    my_d = rng.integers(0, 7, w).astype(np.int32)
+    my_c[-5:] = my_d[-5:] = 0
+    return tuple(torch.from_numpy(a) for a in (ids, nid, my_c, nc, my_d, nd))
+
+
 def test_wrappers_take_plain_versions_on_cpu_and_count_no_launch(zero_counts):
     g, dev, packed, wl = _k1_inputs()
     W = dev.max_width
@@ -89,9 +111,19 @@ def test_wrappers_take_plain_versions_on_cpu_and_count_no_launch(zero_counts):
     want = serial_tail_csr_ref(dev.row_starts, dev.col_padded, dev.deg_ext,
                                colors.clone(), tail, W)
     assert torch.equal(got, want)
-    r = repro_torch.color(build_graph("rmat-g", 0.05), device="cpu")
+    args = _tile_inputs(40)
+    got = superstep_tile(*args, "degree")
+    want = superstep_tile_ref(*args, "degree")
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(conflict_tile(*args, "id"), conflict_tile_ref(*args, "id"))
+    assert torch.equal(firstfit_tile(args[3]), firstfit_tile_ref(args[3]))
+    g = build_graph("rmat-g", 0.05)
+    r = repro_torch.color(g, device="cpu")
     assert r.iterations > 2 and r.class_cells[-1][0] == r.class_cells[0][0]
-    assert [k.launches for k in KERNELS] == [0, 0]
+    for opts in (dict(engine="classic"), dict(engine="padded"),
+                 dict(coarsen_lanes=512, mode="fused")):
+        assert repro_torch.color(g, device="cpu", **opts).converged
+    assert [k.launches for k in KERNELS] == [0] * len(KERNELS)
 
 
 def test_color_without_device_raises_without_a_card():
@@ -104,17 +136,10 @@ def test_color_without_device_raises_without_a_card():
 
 
 NOT_PORTED = [
-    ("engine-padded", (), dict(engine="padded"), "A4"),
-    ("engine-classic", (), dict(engine="classic"), "A4"),
     ("engine-sharded", (), dict(engine="sharded"), "A11"),
-    ("mode-fused", (), dict(mode="fused"), "A4"),
-    ("coarsen-ff", (), dict(coarsen_ff=2), "A4"),
-    ("coarsen-cr", (), dict(coarsen_cr=3), "A4"),
-    ("coarsen-lanes", (), dict(coarsen_lanes=4), "A4"),
     ("trace", (), dict(trace=True), "A6"),
     ("validate-input", (), dict(validate_input="strict"), "A10"),
     ("ensure-valid", (), dict(ensure_valid=True), "A10"),
-    ("algorithm-fused", ("fused",), {}, "A4"),
     ("algorithm-serial", ("serial",), {}, "A5"),
     ("algorithm-jp", ("jp",), {}, "A5"),
     ("algorithm-distance2", ("distance2",), {}, "A8"),
@@ -144,7 +169,7 @@ def test_warm_start_raises_naming_its_item():
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         run_ragged_engine(n=g.n, provider=dev, deg_ext=dev.deg_ext,
                           classes=[np.arange(g.n, dtype=np.int32)],
-                          widths=[4], tail_width=4,
+                          tile_widths=[4], acc_widths=[4], tail_width=4,
                           max_iters=10, colors_init=np.zeros(g.n + 1, np.int32))
 
 
@@ -154,7 +179,7 @@ def test_packed_capacity_guard():
     with pytest.raises(CapacityError, match="packed gather"):
         run_ragged_engine(n=g.n, provider=dev, deg_ext=dev.deg_ext,
                           classes=[np.arange(g.n, dtype=np.int32)],
-                          widths=[4], tail_width=40000,
+                          tile_widths=[4], acc_widths=[4], tail_width=40000,
                           max_iters=10, pack_degrees=True)
 
 
@@ -164,6 +189,7 @@ def test_packed_capacity_guard():
     (dict(backend="torch"), "unknown backend"),
     (dict(engine="dense"), "unknown engine"),
     (dict(mode="eager"), "unknown mode"),
+    (dict(engine="classic", mode="eager"), "unknown mode"),
     (dict(heuristic="random"), "unknown heuristic"),
     (dict(firstfit="popcount"), "unknown firstfit"),
 ])
@@ -186,7 +212,7 @@ def test_auto_backends_run_on_cpu(backend):
 
 
 def test_public_surface():
-    assert repro_torch.algorithms() == ("data_driven",)
+    assert repro_torch.algorithms() == ("data_driven", "fused")
     assert repro_torch.get_algorithm("data_driven").__name__ == "color_data_driven"
     assert issubclass(repro_torch.CapacityError, repro_torch.ReproError)
     o = repro_torch.ColorOptions.normalize(heuristic="id", tiling=(8, 16))
@@ -261,11 +287,51 @@ def test_cuda_color_matches_cpu(cuda_device, zero_counts, name):
 
 
 @pytest.mark.cuda
-def test_cuda_packed_overflow_raises_naming_k3(cuda_device):
+@pytest.mark.parametrize("opts", [{}, dict(mode="fused")],
+                         ids=["workefficient", "fused"])
+def test_cuda_packed_overflow_star_matches_cpu(cuda_device, zero_counts, opts):
     n = 32769  # a star whose hub has degree 2^15 > PACKED_GATHER_MAX_DEG
     g = csr_from_edges(n, np.zeros(n - 1, np.int64), np.arange(1, n))
-    with pytest.raises(NotImplementedError, match="K3"):
-        repro_torch.color(g, device=cuda_device)
+    a = repro_torch.color(g, device=cuda_device, **opts)
+    assert superstep_tile.launches > 0 and superstep_csr.launches == 0
+    b = repro_torch.color(g, device="cpu", **opts)
+    np.testing.assert_array_equal(a.colors, b.colors)
+    assert all(getattr(a, f) == getattr(b, f) for f in FIELDS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 8, 31, 32, 33, 64, 376, 4096])
+@pytest.mark.parametrize("heuristic", ["id", "degree"])
+def test_cuda_tile_kernels_match_plain(cuda_device, zero_counts, W, heuristic):
+    args = _tile_inputs(W, seed=W)
+    gpu = [a.to(cuda_device) for a in args]
+    want = superstep_tile_ref(*args, heuristic)
+    got = superstep_tile(*gpu, heuristic)
+    assert all(torch.equal(a, b.cpu()) for a, b in zip(want, got))
+    assert torch.equal(conflict_tile_ref(*args, heuristic),
+                       conflict_tile(*gpu, heuristic).cpu())
+    assert torch.equal(firstfit_tile_ref(args[3]), firstfit_tile(gpu[3]).cpu())
+    assert [k.launches for k in KERNELS] == [0, 0, 1, 1, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opts,kernels", [
+    (dict(engine="classic"), (firstfit_tile, conflict_tile)),
+    (dict(engine="classic", mode="fused", reuse_rows=True),
+     (firstfit_tile, conflict_tile)),
+    (dict(engine="padded"), (superstep_tile, serial_tail_csr)),
+    (dict(engine="padded", mode="fused"), (superstep_tile, serial_tail_csr)),
+    (dict(coarsen_lanes=1024), (superstep_tile, serial_tail_csr)),
+    (dict(mode="fused"), (superstep_csr, serial_tail_csr)),
+], ids=["classic", "classic-fused", "padded", "padded-fused", "chunked",
+        "ragged-fused"])
+def test_cuda_engines_match_cpu(cuda_device, zero_counts, opts, kernels):
+    g = build_graph("rmat-g", 0.05)
+    a = repro_torch.color(g, device=cuda_device, **opts)
+    assert all(k.launches > 0 for k in kernels)
+    b = repro_torch.color(g, device="cpu", **opts)
+    np.testing.assert_array_equal(a.colors, b.colors)
+    assert all(getattr(a, f) == getattr(b, f) for f in FIELDS)
 
 
 @pytest.mark.cuda
@@ -277,3 +343,11 @@ def test_cuda_wrappers_reject_other_dtypes_and_mixed_devices(cuda_device):
                       wl.to(cuda_device).long(), dev.max_width)
     with pytest.raises(ValueError, match="all lie"):
         superstep_csr(gpu.row_starts, gpu.col_padded, packed, wl, dev.max_width)
+    args = _tile_inputs(16)
+    gpu_args = [a.to(cuda_device) for a in args]
+    with pytest.raises(ValueError, match="int32"):
+        firstfit_tile(gpu_args[3].long())
+    with pytest.raises(ValueError, match="all lie"):
+        conflict_tile(*gpu_args[:3], args[3], *gpu_args[4:])
+    with pytest.raises(ValueError, match="int32"):
+        superstep_tile(*gpu_args[:5], gpu_args[5].long())
