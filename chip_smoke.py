@@ -17,24 +17,42 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 5. K3-K5   — the gathered-tile kernels against their plain versions, bit
              for bit: widths 1..4096, both heuristics, sentinel rows, rows
              whose colours 1..32 are all taken.
-6. latency — a dependent-load chain (``csrc/latency_probe.cu``) times one
+6. K6      — the two-tile distance-2 FirstFit against its plain version,
+             bit for bit: W1 in 1..33, W2 in 1..4096, w in 1, 37, 1000,
+             random rows and rows holding every colour 1..W1+W2.
+7. latency — a dependent-load chain (``csrc/latency_probe.cu``) times one
              L1 hit and one L2 hit: K2's chain bound is T such steps.
-7. slice   — every SUITE graph at scale 0.25 through ``color`` on the card
+8. slice   — every SUITE graph at scale 0.25 through ``color`` on the card
              and on the CPU: every ``ColoringResult`` field equal; then the
              classic, padded, chunked and fused options on rmat-er, rmat-g
              and thermal2 at 0.25, and the packed-overflow star, the same.
-8. full    — the main paths at full size, each ``color()`` run once with
-             the launch counts set to 0 just before and read just after,
-             then timed: the default ragged path, the classic engine and
-             the padded engine on the paper's three 1M-vertex graphs
-             (rmat-er, rmat-g, thermal2); the default path on kkt_power at
-             scale 4 (degrees past the packed word: K3 in every class);
-             chunked (coarsen_lanes=65536) and fused ragged runs on rmat-er.
+             Then distance-2: ``distance2`` on SUITE at 0.005 (both
+             strategies, both modes), ``bipartite`` on two Jacobian
+             patterns (both strategies), and ``d2_sgr_step`` to convergence
+             on rmat-er at 0.05 (with and without the hop-1 neighbours):
+             card == CPU.
+9. full    — the main paths at full size, each run once with the launch
+             counts set to 0 just before and read just after, then timed:
+             the default ragged path, the classic engine and the padded
+             engine on the paper's three 1M-vertex graphs (rmat-er, rmat-g,
+             thermal2); the default path on kkt_power at scale 4 (degrees
+             past the packed word: K3 in every class); chunked
+             (coarsen_lanes=65536) and fused ragged runs on rmat-er.
              Valid colorings, launch counts above 0 for the kernels each
              path runs, rmat-er's default colors equal to the serial-greedy
              oracle; times, per-kernel times from CUDA events at the main
              paths' shapes (each kernel held against its plain version
              there), peak memory, a profiler line.
+10. full distance-2 — ``distance2`` on rmat-er and thermal2 (``auto``
+             composes the two hops on the fly: K3, K2 over composed rows),
+             ``distance2`` precomputed on thermal2 (K1 over G², K2; the
+             host G² build timed apart), ``bipartite`` on
+             ``jacobian_band(1<<20, 3)`` (K3, K2; optimum 7 colours, and
+             ``compress_jacobian_pattern`` into 7 groups) and
+             ``d2_sgr_step`` to convergence on rmat-er (K6, K5): valid
+             colourings, launches, times; K6 at rmat-er's and thermal2's
+             first-step shapes and the composed-row tail at W = 702 against
+             their bounds and plain versions.
 
 The line before the last is the kernels' JSON record, and the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
@@ -56,20 +74,46 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import color  # noqa: E402
 from repro_torch.core.coloring import (  # noqa: E402
+    ColoringResult,
     DenseRows,
+    TAIL_SEGMENT_CELLS,
+    _composed_tail,
     _resolve_classes,
+    gather_rows,
     order_tail,
+    run_workefficient_loop,
 )
 from repro_torch.core.csr import DeviceCSR, csr_from_edges  # noqa: E402
 from repro_torch.core.serial import greedy_serial  # noqa: E402
 from repro_torch.core.validate import is_valid_coloring  # noqa: E402
-from repro_torch.graphs import RMAT_ER, RMAT_G, SUITE, build_graph, grid2d, rmat  # noqa: E402
+from repro_torch.d2 import (  # noqa: E402
+    compress_jacobian_pattern,
+    d2_sgr_step,
+    validate_bipartite,
+    validate_d2,
+)
+from repro_torch.d2.coloring import (  # noqa: E402
+    DEFAULT_D2_BUDGET,
+    TwoHopRows,
+    resolve_d2_strategy,
+)
+from repro_torch.graphs import (  # noqa: E402
+    RMAT_ER,
+    RMAT_G,
+    SUITE,
+    build_graph,
+    grid2d,
+    jacobian_band,
+    jacobian_tall_skinny,
+    rmat,
+)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.conflict.kernel import (  # noqa: E402
     conflict_tile,
     conflict_tile_ref,
 )
 from repro_torch.kernels.cuda import check, stream  # noqa: E402
+from repro_torch.kernels.d2.kernel import d2_firstfit, d2_firstfit_ref  # noqa: E402
 from repro_torch.kernels.firstfit.kernel import (  # noqa: E402
     firstfit_tile,
     firstfit_tile_ref,
@@ -77,6 +121,8 @@ from repro_torch.kernels.firstfit.kernel import (  # noqa: E402
 from repro_torch.kernels.superstep.csr_kernel import (  # noqa: E402
     serial_tail_csr,
     serial_tail_csr_ref,
+    serial_tail_rows,
+    serial_tail_rows_ref,
     superstep_csr,
     superstep_csr_ref,
 )
@@ -89,7 +135,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA's data sheet
 RESULT_FIELDS = ("iterations", "work_items", "padded_work", "class_cells",
                  "converged")
 KERNELS = (superstep_csr, serial_tail_csr, superstep_tile, firstfit_tile,
-           conflict_tile)
+           conflict_tile, d2_firstfit)
 HEURISTICS = ("id", "degree")
 
 
@@ -124,15 +170,16 @@ def event_ms(fn, reps: int, warm: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(deg_ext: np.ndarray, wl: np.ndarray, W: int) -> float:
+def bound_ms(deg_ext: np.ndarray, wl: np.ndarray, W: int, per_entry: int) -> float:
     """Least time to move the bytes K1 or K2 must move, over HBM's rate.
 
-    Both move 20 B per worklist entry (K1: wl, R[v], packed[v] in, new
-    color and need out; K2: wl, starts, degs in, the clear and the color
-    out) and 8 B per neighbour read (C and the neighbour's packed word or
-    color), counting each row up to the class width W.
+    ``per_entry`` bytes per worklist entry (K1: wl, R[v], R[v+1], packed[v]
+    in, new color and need out, 24 B; K2: wl, starts, degs in, the clear
+    and the color out, 20 B) and 8 B per neighbour read (C and the
+    neighbour's packed word or color), counting each row up to the class
+    width W.
     """
-    nbytes = int(wl.size) * 20 + int(np.minimum(deg_ext[wl], W).sum()) * 8
+    nbytes = int(wl.size) * per_entry + int(np.minimum(deg_ext[wl], W).sum()) * 8
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
@@ -315,6 +362,43 @@ def check_tiles(dev_cuda):
           "and full rows; both heuristics; sentinel rows)", flush=True)
 
 
+def d2_tiles(rng, w: int, W1: int, W2: int, mode: str):
+    """Hop-1 ``(w, W1)`` and hop-2 ``(w, W2)`` int32 colour tiles for K6.
+
+    ``random`` draws colours from [0, W1+W2+3] (zeros and colours past the
+    bound included); ``full`` gives every row but the last a permutation of
+    1..W1+W2 spread over both tiles (answer W1 + W2 + 1; for W1 + W2 >= 32
+    through the shared-bitset path, colours 1..32 all taken) with one
+    colour knocked out of every third row (the answer is that colour).
+    """
+    hi = W1 + W2 + 3
+    nc1 = rng.integers(0, hi + 1, (w, W1)).astype(np.int32)
+    nc2 = rng.integers(0, hi + 1, (w, W2)).astype(np.int32)
+    if mode == "full":
+        perm = np.argsort(rng.random((w, W1 + W2)), axis=1).astype(np.int32) + 1
+        perm[::3, 0] = 0
+        nc1, nc2 = perm[:, :W1].copy(), perm[:, W1:].copy()
+        nc2[-1:] = 0
+    return torch.from_numpy(nc1), torch.from_numpy(nc2)
+
+
+def check_k6(dev_cuda):
+    rng = np.random.default_rng(19)
+    cases = 0
+    for W1 in (1, 8, 26, 32, 33):
+        for W2 in (1, 31, 64, 676, 4096):
+            for w in (1, 37, 1000):
+                for mode in ("random", "full"):
+                    nc1, nc2 = d2_tiles(rng, w, W1, W2, mode)
+                    got = d2_firstfit(nc1.to(dev_cuda), nc2.to(dev_cuda)).cpu()
+                    if not torch.equal(d2_firstfit_ref(nc1, nc2), got):
+                        fail(f"K6 differs from its plain version: W1={W1} "
+                             f"W2={W2} w={w} {mode}")
+                    cases += 1
+    print(f"K6 == plain on {cases} cases (W1 in 1, 8, 26, 32, 33; W2 in 1, 31, "
+          "64, 676, 4096; w in 1, 37, 1000; random and full rows)", flush=True)
+
+
 # --------------------------------------------------------------------------
 # phase 6: dependent-load latency (K2's chain bound)
 # --------------------------------------------------------------------------
@@ -415,6 +499,74 @@ def check_slice(dev_cuda):
           "class, both modes): card == cpu", flush=True)
 
 
+def d2_classic(g, device, include_first_hop: bool = True,
+               max_iters: int = 1000) -> ColoringResult:
+    """``d2_sgr_step`` driven by ``run_workefficient_loop`` from the
+    all-zero start over every vertex, as a ``ColoringResult``."""
+    adj = torch.from_numpy(g.padded_adjacency()).to(device)
+    deg = torch.from_numpy(np.concatenate([g.degrees, [0]]).astype(np.int32)).to(device)
+
+    def step(colors, wl):
+        return d2_sgr_step(adj, adj, deg, colors, wl,
+                           include_first_hop=include_first_hop)
+
+    colors, iters, work, padded, converged = run_workefficient_loop(
+        step, torch.zeros(g.n + 1, dtype=torch.int32, device=device),
+        torch.arange(g.n, dtype=torch.int32, device=device), g.n, max_iters)
+    return ColoringResult(colors[:g.n].cpu().numpy(), iters, work, padded,
+                          converged, algorithm="d2_sgr_step")
+
+
+def check_d2_slice(dev_cuda):
+    reset_counts()
+    for name in SUITE:
+        g = build_graph(name, 0.005)
+        for strategy in ("precomputed", "onthefly"):
+            for mode in ("workefficient", "fused"):
+                opts = dict(strategy=strategy, mode=mode)
+                a = color(g, "distance2", device=dev_cuda, **opts)
+                diff = same_result(a, color(g, "distance2", device="cpu", **opts))
+                if diff or not validate_d2(g, a.colors):
+                    fail(f"d2 slice: {name} {opts} card != cpu or invalid: {diff}")
+    print("d2 slice: distance2 on SUITE at 0.005, both strategies, both modes: "
+          "card == cpu, valid", flush=True)
+    for label, bg in (("jacobian_band(4096, 3)", jacobian_band(4096, band=3)),
+                      ("jacobian_tall_skinny(20000, 256, 4)",
+                       jacobian_tall_skinny(20000, 256, 4))):
+        for strategy in ("precomputed", "onthefly"):
+            a = color(bg, "bipartite", device=dev_cuda, strategy=strategy)
+            diff = same_result(a, color(bg, "bipartite", device="cpu",
+                                        strategy=strategy))
+            if diff or not validate_bipartite(bg, a.colors):
+                fail(f"d2 slice: bipartite {label} {strategy}: card != cpu "
+                     f"or invalid: {diff}")
+        want = compress_jacobian_pattern(bg, device="cpu")
+        got = compress_jacobian_pattern(bg, device=dev_cuda)
+        if not (np.array_equal(want.seed_matrix(), got.seed_matrix())
+                and all(np.array_equal(x, y) for x, y in zip(want.groups, got.groups))):
+            fail(f"d2 slice: compress_jacobian_pattern {label}: card != cpu")
+        print(f"d2 slice: bipartite {label}: {a.num_colors} colors, both "
+              "strategies and compress_jacobian_pattern card == cpu", flush=True)
+    g = build_graph("rmat-er", 0.05)
+    for include_first_hop in (True, False):
+        a = d2_classic(g, dev_cuda, include_first_hop)
+        diff = same_result(a, d2_classic(g, "cpu", include_first_hop))
+        if diff or not a.converged:
+            fail(f"d2 slice: d2_sgr_step include_first_hop={include_first_hop} "
+                 f"card != cpu or unconverged: {diff}")
+        if include_first_hop and not validate_d2(g, a.colors):
+            fail("d2 slice: d2_sgr_step coloring is not distance-2 valid")
+        print(f"d2 slice: d2_sgr_step on rmat-er at 0.05 (n={g.n}), "
+              f"include_first_hop={include_first_hop}: {a.iterations} steps, "
+              f"{a.num_colors} colors, card == cpu", flush=True)
+    counts = {k.__name__: k.launches for k in KERNELS}
+    for k in (superstep_csr, serial_tail_csr, superstep_tile, firstfit_tile,
+              conflict_tile, d2_firstfit):
+        if counts[k.__name__] == 0:
+            fail(f"d2 slice: kernel {k.__name__} was not launched")
+    print(f"d2 slice launches: {counts}", flush=True)
+
+
 # --------------------------------------------------------------------------
 # phase 8: the main paths at full size
 # --------------------------------------------------------------------------
@@ -458,7 +610,7 @@ def kernel_times(g, dev_cuda, plain: bool) -> dict:
         ms = event_ms(lambda: superstep_csr(gpu.row_starts, gpu.col_padded,
                                             packed, wl, W), reps=10, warm=2)
         rec = {"W": W, "w": int(cls.size), "ms": ms,
-               "bound_ms": bound_ms(deg_np, cls, W)}
+               "bound_ms": bound_ms(deg_np, cls, W, 24)}
         if plain:
             got = superstep_csr(gpu.row_starts, gpu.col_padded, packed, wl, W)
             t = time.perf_counter()
@@ -479,7 +631,7 @@ def kernel_times(g, dev_cuda, plain: bool) -> dict:
           "ms": event_ms(lambda: serial_tail_csr(
               gpu.row_starts, gpu.col_padded, gpu.deg_ext, work, tail, W),
               reps=3, warm=1),
-          "bound_ms": bound_ms(deg_np, tail.cpu().numpy(), W)}
+          "bound_ms": bound_ms(deg_np, tail.cpu().numpy(), W, 20)}
     if plain:
         got = serial_tail_csr(gpu.row_starts, gpu.col_padded, gpu.deg_ext,
                               colors.clone(), tail, W)
@@ -596,14 +748,14 @@ def device_us(event) -> float:
                    getattr(event, "self_cuda_time_total", 0))
 
 
-def profile_color(g, dev_cuda, opts):
-    """Device time by kernel for one ``color()`` call, from torch.profiler."""
+def profile_call(call):
+    """Device time by kernel for one call, from torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        color(g, device=dev_cuda, **opts)
+        call()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
     # device rows only: an aten:: op's row repeats its kernels' device time
@@ -620,33 +772,35 @@ def profile_color(g, dev_cuda, opts):
         print(f"    {ms:10.3f} ms  x{count:<5d} {key[:90]}")
 
 
-def run_full(label, g, opts, kernels, dev_cuda) -> dict:
-    """One main path at full size: the counted run, then three timed runs."""
+def run_full(label, call, kernels, valid, reps: int = 3, what: str = "") -> dict:
+    """One main path at full size: the counted run of ``call()``, then
+    ``reps`` timed runs (after the counted one, which warms up) and a
+    profiled one."""
     reset_counts()
-    r = color(g, device=dev_cuda, **opts)  # the main path's counted run
+    r = call()  # the main path's counted run
     counts = {k.__name__: k.launches for k in KERNELS}
     for k in kernels:
         if counts[k.__name__] == 0:
             fail(f"full {label}: kernel {k.__name__} was not launched on its path")
-    if not is_valid_coloring(g, r.colors):
+    if not valid(r.colors):
         fail(f"full {label}: coloring is not valid")
     walls, peaks = [], []
-    for _ in range(3):
+    for _ in range(reps):
         torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
-        again = color(g, device=dev_cuda, **opts)
+        again = call()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t) * 1e3)
         peaks.append(torch.cuda.max_memory_allocated())
         if not np.array_equal(again.colors, r.colors):
             fail(f"full {label}: a repeated run gave other colors")
-    print(f"full {label} {opts}: iters={r.iterations} colors={r.num_colors} "
-          f"class_cells={r.class_cells}", flush=True)
-    print(f"  color(): median {statistics.median(walls):.3f} ms of "
+    print(f"full {label} {what}: iters={r.iterations} colors={r.num_colors} "
+          f"converged={r.converged} class_cells={r.class_cells}", flush=True)
+    print(f"  call: median {statistics.median(walls):.3f} ms of "
           f"{[round(w, 3) for w in walls]}, peak device memory "
           f"{max(peaks) / 2**20:.1f} MiB, launches "
           f"{ {k: c for k, c in counts.items() if c} }")
-    profile_color(g, dev_cuda, opts)
+    profile_call(call)
     return {"result": r, "counts": counts}
 
 
@@ -669,7 +823,8 @@ def check_full(dev_cuda) -> dict:
               f"(built in {time.perf_counter() - t:.1f} s)", flush=True)
     for label, name, opts, kernels in FULL_RUNS:
         g = graphs[name]
-        out = run_full(label, g, opts, kernels, dev_cuda)
+        out = run_full(label, lambda: color(g, device=dev_cuda, **opts), kernels,
+                       lambda c: is_valid_coloring(g, c), what=str(opts))
         for k, c in out["counts"].items():
             totals[k] += c
         r = out["result"]
@@ -707,15 +862,174 @@ def check_full(dev_cuda) -> dict:
             print_tile_recs("K3", recs)
             del provider
         torch.cuda.empty_cache()
+    return {"launches": totals, "times": times, "graphs": graphs}
+
+
+# (label, graph, options, the kernels this path must launch); the graphs of
+# the distance-2 runs have G^2 too large for the 256 MiB budget, so ``auto``
+# composes the two hops on the fly (K3 over (n, Δ²+Δ) tiles, K2 tail)
+D2_FULL_RUNS = [
+    ("distance2 rmat-er", "rmat-er", {}, (superstep_tile, serial_tail_csr)),
+    ("distance2 thermal2", "thermal2", {}, (superstep_tile, serial_tail_csr)),
+    ("distance2 precomputed thermal2", "thermal2", dict(strategy="precomputed"),
+     (superstep_csr, serial_tail_csr)),
+    ("bipartite jacobian_band", "jacobian_band", {}, (superstep_tile, serial_tail_csr)),
+]
+
+
+def two_hop_colors(g, dev_cuda, colors):
+    """The hop-1 ``(n, Δ)`` and hop-2 ``(n, Δ²)`` colour tiles of every
+    vertex, as ``d2_sgr_step``'s FirstFit reads them."""
+    adj = torch.from_numpy(g.padded_adjacency()).to(dev_cuda)
+    rows1 = gather_rows(adj, torch.arange(g.n, dtype=torch.int32, device=dev_cuda))
+    rows2 = gather_rows(adj, rows1.reshape(-1), sentinel=g.n).reshape(g.n, -1)
+    return colors[rows1.long()], colors[rows2.long()]
+
+
+def k6_times(g, dev_cuda, plain_rows: int) -> dict:
+    """K6 at the first step's shape (w = n, W1 = Δ, W2 = Δ²) on the colours
+    one ``d2_sgr_step`` from the all-zero start leaves: CUDA-event time, the
+    byte bound (each tile word read once, the colours written once) and the
+    plain version's CPU time and a bit-for-bit check on the first
+    ``plain_rows`` rows."""
+    n = g.n
+    adj = torch.from_numpy(g.padded_adjacency()).to(dev_cuda)
+    deg = torch.from_numpy(np.concatenate([g.degrees, [0]]).astype(np.int32)).to(dev_cuda)
+    colors, _, _ = d2_sgr_step(adj, adj, deg, torch.zeros(n + 1, dtype=torch.int32,
+                                                          device=dev_cuda),
+                               torch.arange(n, dtype=torch.int32, device=dev_cuda))
+    del adj
+    nc1, nc2 = two_hop_colors(g, dev_cuda, colors)
+    W1, W2 = nc1.shape[1], nc2.shape[1]
+    rec = {"w": n, "W1": W1, "W2": W2,
+           "ms": event_ms(lambda: d2_firstfit(nc1, nc2), reps=10, warm=2),
+           "bound_ms": 4 * n * (W1 + W2 + 1) / HBM_BYTES_PER_S * 1e3,
+           "plain_rows": plain_rows}
+    got = d2_firstfit(nc1, nc2)[:plain_rows]
+    c1, c2 = nc1[:plain_rows].cpu(), nc2[:plain_rows].cpu()
+    rec["plain_ms"], rec["max_abs_err"] = plain_check(
+        "K6", lambda: d2_firstfit_ref(c1, c2), got, (plain_rows, W1, W2))
+    print(f"  K6 w={n} W1={W1} W2={W2}: {rec['ms']:.4f} ms (bound "
+          f"{rec['bound_ms']:.4f} ms), plain {rec['plain_ms']:.1f} ms on the "
+          f"first {plain_rows} rows", flush=True)
+    return rec
+
+
+def composed_tail_times(g, dev_cuda, lat: dict, check_rows: int = 2048) -> dict:
+    """The composed-row serial tail over all n vertices in ``order_tail``
+    order (the stall tail of ``distance2`` on the fly): the whole tail
+    (segments materialized, then K2 on each) and its K2 launches alone,
+    by CUDA events; K2 over the first ``check_rows`` entries against its
+    plain version."""
+    adj = torch.from_numpy(g.padded_adjacency()).to(dev_cuda)
+    prov = TwoHopRows(adj, adj)
+    W = prov.width
+    deg = torch.from_numpy(np.concatenate([g.degrees, [0]]).astype(np.int32)).to(dev_cuda)
+    tail = order_tail(torch.arange(g.n, dtype=torch.int32, device=dev_cuda), deg)
+    colors = torch.ones(g.n + 1, dtype=torch.int32, device=dev_cuda)
+    colors[g.n] = 0
+    whole_ms = event_ms(lambda: _composed_tail(prov, colors.clone(), tail, W),
+                        reps=1, warm=1)
+    seg = TAIL_SEGMENT_CELLS // W
+    segs = []
+    for lo in range(0, g.n, seg):
+        ids = tail[lo:lo + seg]
+        k = int(ids.shape[0])
+        segs.append((torch.arange(0, k * W, W, dtype=torch.int32, device=dev_cuda),
+                     torch.full((k,), W, dtype=torch.int32, device=dev_cuda),
+                     prov.rows(ids).reshape(-1), ids))
+    work = colors.clone()
+
+    def k2_only():
+        work[tail.long()] = 0
+        for starts, degs, rows, ids in segs:
+            serial_tail_rows(starts, degs, rows, work, ids, W)
+
+    k2_ms = event_ms(k2_only, reps=1, warm=1)
+    starts, degs, rows, ids = segs[0]
+    k = check_rows
+    got = serial_tail_rows(starts[:k], degs[:k], rows[:k * W], colors.clone(),
+                           ids[:k], W)
+    plain_ms, err = plain_check(
+        "K2 (composed rows)", lambda: serial_tail_rows_ref(
+            starts[:k].cpu(), degs[:k].cpu(), rows[:k * W].cpu(),
+            colors.cpu().clone(), ids[:k].cpu(), W), got, (k, W))
+    rec = {"W": W, "T": g.n, "segments": len(segs), "whole_ms": whole_ms,
+           "ms": k2_ms, "ns_per_vertex": k2_ms * 1e6 / g.n,
+           "bytes_bound_ms": (g.n * 20 + g.n * W * 8) / HBM_BYTES_PER_S * 1e3,
+           "plain_ms": plain_ms, "plain_rows": k, "max_abs_err": err}
+    print(f"  K2 composed tail W={W} T={g.n} in {len(segs)} segments: whole tail "
+          f"{whole_ms:.3f} ms, K2 launches {k2_ms:.3f} ms ({rec['ns_per_vertex']:.1f} "
+          f"ns/vertex; byte bound {rec['bytes_bound_ms']:.3f} ms, chain T x L1 "
+          f"{g.n * lat['l1_ns'] / 1e6:.3f} ms, T x L2 {g.n * lat['l2_ns'] / 1e6:.3f} "
+          f"ms); plain {plain_ms:.1f} ms on the first {k} entries", flush=True)
+    return rec
+
+
+def check_d2_full(graphs: dict, dev_cuda, lat: dict) -> dict:
+    graphs = dict(graphs)
+    t = time.perf_counter()
+    graphs["jacobian_band"] = jacobian_band(1 << 20, band=3)
+    bg = graphs["jacobian_band"]
+    print(f"graph jacobian_band(1<<20, band=3): n_cols={bg.n_cols} "
+          f"nnz={bg.nnz} (built in {time.perf_counter() - t:.1f} s)", flush=True)
+    totals = {k.__name__: 0 for k in KERNELS}
+    for label, name, opts, kernels in D2_FULL_RUNS:
+        g = graphs[name]
+        algorithm = "bipartite" if name == "jacobian_band" else "distance2"
+        valid = validate_bipartite if algorithm == "bipartite" else validate_d2
+        precomputed = opts.get("strategy") == "precomputed"
+        if algorithm == "distance2" and not precomputed:
+            print(f"{label}: strategy auto resolves to "
+                  f"{resolve_d2_strategy(g, 'auto', DEFAULT_D2_BUDGET)}", flush=True)
+        if precomputed:
+            t = time.perf_counter()
+            g2 = g.square()
+            print(f"{label}: host G^2 build {time.perf_counter() - t:.1f} s "
+                  f"(n={g2.n}, m={g2.m}, dmax={g2.max_degree}); color() below "
+                  "includes it", flush=True)
+            del g2
+        out = run_full(label, lambda: color(g, algorithm, device=dev_cuda, **opts),
+                       kernels, lambda c: valid(g, c), reps=1 if precomputed else 3,
+                       what=str(opts))
+        for k, c in out["counts"].items():
+            totals[k] += c
+        if algorithm == "bipartite":
+            t = time.perf_counter()
+            cr = compress_jacobian_pattern(g, device=dev_cuda)
+            seed = cr.seed_matrix()
+            if cr.num_groups != 7 or seed.shape != (g.n_cols, 7) or (seed.sum(1) != 1).any():
+                fail(f"full {label}: compress_jacobian_pattern gave {cr.num_groups} "
+                     f"groups, seed {seed.shape}")
+            print(f"  colors {out['result'].num_colors}, optimum 2*band+1 = 7; "
+                  f"compress_jacobian_pattern: {cr.num_groups} groups, seed "
+                  f"{seed.shape} in {(time.perf_counter() - t) * 1e3:.1f} ms",
+                  flush=True)
+        torch.cuda.empty_cache()
+    g = graphs["rmat-er"]
+    out = run_full("d2_sgr_step rmat-er", lambda: d2_classic(g, dev_cuda),
+                   (d2_firstfit, conflict_tile), lambda c: validate_d2(g, c),
+                   what="(run_workefficient_loop, include_first_hop=True)")
+    for k, c in out["counts"].items():
+        totals[k] += c
+    torch.cuda.empty_cache()
+    times = {"k6": k6_times(g, dev_cuda, plain_rows=65536)}
+    torch.cuda.empty_cache()
+    times["k6 thermal2"] = k6_times(graphs["thermal2"], dev_cuda, plain_rows=65536)
+    torch.cuda.empty_cache()
+    times["k2 composed"] = composed_tail_times(g, dev_cuda, lat)
+    torch.cuda.empty_cache()
     return {"launches": totals, "times": times}
 
 
 def kernels_record(full: dict) -> list:
-    """The kernels' JSON record: launches from the main paths' runs, times
-    and bounds at their shapes on rmat-er (K1: mean per launch over the
-    first superstep's classes; K2: the stall tail over all n vertices; K3:
-    mean per launch over the padded engine's first-superstep classes; K4
-    and K5: the classic engine's first step)."""
+    """The kernels' JSON record: launches summed over the main paths'
+    counted runs (distance-1 and distance-2), times and bounds at their
+    shapes on rmat-er (K1: mean per launch over the first superstep's
+    classes; K2: the stall tail over all n vertices; K3: mean per launch
+    over the padded engine's first-superstep classes; K4 and K5: the
+    classic engine's first step; K6: ``d2_sgr_step``'s FirstFit over all n
+    after one step)."""
     t = full["times"]
     k1, k2 = t["ragged rmat-er"]["k1"], t["ragged rmat-er"]["k2"]
     k3 = t["padded rmat-er"]
@@ -732,6 +1046,7 @@ def kernels_record(full: dict) -> list:
 
     csr_src = "src/repro_torch/csrc/superstep_csr.cu"
     tile_src = "src/repro_torch/csrc/tile_kernels.cu"
+    d2_src = "src/repro_torch/csrc/d2_kernels.cu"
     return [
         entry("superstep_csr", csr_src,
               "src/repro/kernels/superstep/csr_kernel.py:62", k1),
@@ -743,6 +1058,8 @@ def kernels_record(full: dict) -> list:
               "src/repro/kernels/firstfit/kernel.py:28", [k4]),
         entry("conflict_tile", tile_src,
               "src/repro/kernels/conflict/kernel.py:23", [k5]),
+        entry("d2_firstfit", d2_src, "src/repro/kernels/d2/kernel.py:44",
+              [t["k6"]]),
     ]
 
 
@@ -768,14 +1085,22 @@ def main():
     check_k1(dev_cuda)
     check_k2(dev_cuda)
     check_tiles(dev_cuda)
+    check_k6(dev_cuda)
     lat = check_latency(dev_cuda)
     print(f"checks took {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     check_slice(dev_cuda)
+    check_d2_slice(dev_cuda)
     print(f"slice took {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     full = check_full(dev_cuda)
     print(f"full took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    d2 = check_d2_full(full["graphs"], dev_cuda, lat)
+    for k, c in d2["launches"].items():
+        full["launches"][k] += c
+    full["times"].update(d2["times"])
+    print(f"full distance-2 took {time.perf_counter() - t0:.1f} s", flush=True)
     T = full["times"]["ragged rmat-er"]["k2"]["T"]
     print(f"K2 chain bound at T={T}: {T * lat['l1_ns'] / 1e6:.3f} ms "
           f"(T x L1 hit), {T * lat['l2_ns'] / 1e6:.3f} ms (T x L2 hit)")

@@ -5,8 +5,9 @@
     result = repro_torch.color(g, device="cpu")    # plain versions, no card
 
 Algorithms self-register with ``@register(name)``.  The port registers
-``data_driven`` and ``fused``; the names ``repro`` has beyond them raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+``data_driven``, ``fused``, ``distance2`` and ``bipartite``; the names
+``repro`` has beyond them raise ``NotImplementedError`` naming the ROADMAP
+item that ports them.
 """
 from __future__ import annotations
 
@@ -25,8 +26,7 @@ _REGISTRY: dict[str, Callable] = {}
 # repro's algorithms that later slices port, with their ROADMAP items
 _NOT_PORTED = {
     "serial": "A5", "topology": "A5", "jp": "A5",
-    "multihash": "A5", "threestep": "A5", "distance2": "A8",
-    "bipartite": "A8", "dynamic": "A9",
+    "multihash": "A5", "threestep": "A5", "dynamic": "A9",
 }
 
 
@@ -44,6 +44,7 @@ def register(name: str):
 
 def _ensure_registered() -> None:
     import repro_torch.core.coloring  # noqa: F401  (runs @register)
+    import repro_torch.d2  # noqa: F401
 
 
 def algorithms() -> tuple[str, ...]:

@@ -9,7 +9,8 @@ two modes.
   (``kernels/superstep/csr_kernel.superstep_csr``) when the worklist is
   unchunked and degrees fit the packed gather word; otherwise the engine
   gathers ``(w, W)`` tiles and launches K3 (``kernels/superstep/kernel``).
-  The tail is one K2 launch (``serial_tail_csr``).
+  The tail is one K2 launch (``serial_tail_csr``), or one per segment over
+  composed two-hop rows (``repro_torch.d2``).
 * ``padded`` — the same schedule over the dense ``(n, Δmax)`` adjacency
   table (``DenseRows``): K3 for every class, K2 for the tail.
 * ``classic`` — the two-phase super-step (``sgr_step``): FirstFit (K4,
@@ -54,7 +55,11 @@ from repro_torch.ingest import PACKED_GATHER_MAX_DEG, packed_gather_ok
 from repro_torch.kernels.conflict.kernel import conflict_tile
 from repro_torch.kernels.dispatch import resolve_backend
 from repro_torch.kernels.firstfit.kernel import firstfit_tile
-from repro_torch.kernels.superstep.csr_kernel import serial_tail_csr, superstep_csr
+from repro_torch.kernels.superstep.csr_kernel import (
+    serial_tail_csr,
+    serial_tail_rows,
+    superstep_csr,
+)
 from repro_torch.kernels.superstep.kernel import superstep_tile
 
 __all__ = [
@@ -360,8 +365,14 @@ class DenseRows:
         return self.adj[max(v, 0)]
 
 
+# cells of composed rows one serial-tail segment materializes: 2^26 int32
+# cells are 256 MiB, the composed gathers' transients a few times that, and
+# row starts (position x width) stay far below 2^31
+TAIL_SEGMENT_CELLS = 2**26
+
+
 def _dispatch_tail(provider, colors_ext, wl, *, width: int):
-    """The serial tail as one K2 launch (its plain version on the CPU).
+    """The serial tail as K2 launches (their plain version on the CPU).
 
     K2 walks CSR rows.  For the dense provider it reads the graph's
     ``DeviceCSR`` rather than the dense table recast as CSR (row starts
@@ -369,10 +380,38 @@ def _dispatch_tail(provider, colors_ext, wl, *, width: int):
     first ``deg(v)`` lanes hold the same neighbors in both layouts and the
     dense pad lanes read color 0, so both compute ``serial_tail_step``'s
     function — every FirstFit ``kind`` returns the smallest free color.
+    A composed provider (``repro_torch.d2.TwoHopRows``) has no CSR: see
+    ``_composed_tail``.
     """
-    csr = provider if isinstance(provider, DeviceCSR) else provider.csr
+    csr = provider if isinstance(provider, DeviceCSR) else getattr(provider, "csr", None)
+    if csr is None:
+        return _composed_tail(provider, colors_ext, wl, width)
     return serial_tail_csr(csr.row_starts, csr.col_padded, csr.deg_ext,
                            colors_ext, wl, width)
+
+
+def _composed_tail(provider, colors_ext, wl, width: int):
+    """``serial_tail_step`` over a composed row provider, as K2 launches.
+
+    Clears the whole tail's colors, then walks it in consecutive segments of
+    at most ``TAIL_SEGMENT_CELLS // width`` entries: each segment's rows are
+    materialized as one flat array (entry i's row starts at ``i · width``,
+    every row has degree ``width``, sentinel lanes read color 0) and K2 runs
+    over it.  K2 first clears its segment's colors, which are already 0, so
+    the launches together compute ``serial_tail_step`` over the whole tail;
+    self and duplicate lanes read 0 or a settled color, as there.
+    """
+    colors_ext[wl.long()] = 0
+    seg = max(1, TAIL_SEGMENT_CELLS // width)
+    for lo in range(0, int(wl.shape[0]), seg):
+        ids = wl[lo:lo + seg]
+        rows = provider.rows(ids)
+        k = int(ids.shape[0])
+        starts = torch.arange(0, k * width, width, dtype=torch.int32,
+                              device=wl.device)
+        degs = torch.full((k,), width, dtype=torch.int32, device=wl.device)
+        serial_tail_rows(starts, degs, rows.reshape(-1), colors_ext, ids, width)
+    return colors_ext
 
 
 def _tiled_superstep(provider, deg_ext, colors_ext, wls, *, widths, heuristic,

@@ -24,6 +24,7 @@ __all__ = [
     "CSRGraph",
     "DeviceCSR",
     "auto_tile_thresholds",
+    "compose_pairs",
     "csr_from_edges",
     "next_pow2",
     "padded_ragged",
@@ -73,6 +74,9 @@ class CSRGraph:
     def max_degree(self) -> int:
         return int(self.degrees.max(initial=0))
 
+    def neighbors(self, v: int) -> np.ndarray:
+        return self.col_indices[self.row_offsets[v] : self.row_offsets[v + 1]]
+
     def padded_adjacency(
         self, width: int | None = None, *, allow_truncate: bool = False
     ) -> np.ndarray:
@@ -89,6 +93,37 @@ class CSRGraph:
                 f"drop neighbors; pass allow_truncate=True if that is intended"
             )
         return padded_ragged(self.row_offsets, self.col_indices, width, self.n)
+
+    # -- distance-2 views ----------------------------------------------------
+    def two_hop_degree_bound(self) -> int:
+        """Cheap upper bound on the square graph's max degree (no dedup):
+        ``max_v [deg(v) + Σ_{u∈N(v)} deg(u)]``, in O(m)."""
+        if self.m == 0:
+            return 0
+        deg = self.degrees.astype(np.int64)
+        rows = np.repeat(np.arange(self.n, dtype=np.int64), deg)
+        nbr_deg_sum = np.bincount(
+            rows, weights=deg[self.col_indices], minlength=self.n
+        ).astype(np.int64)
+        return int((deg + nbr_deg_sum).max())
+
+    def square(self) -> "CSRGraph":
+        """The square graph G²: u ~ v iff 0 < dist(u, v) <= 2.
+
+        Distance-2 coloring of G is distance-1 coloring of G².  Costs
+        O(Σ_u deg(u)²) host time and memory.
+        """
+        src1, dst1 = self.edges()
+        src2, dst2 = compose_pairs(
+            self.row_offsets, self.col_indices, self.row_offsets, self.col_indices
+        )
+        return csr_from_edges(
+            self.n,
+            np.concatenate([src1, src2]),
+            np.concatenate([dst1, dst2]),
+            symmetrize=False,  # dist<=2 is already a symmetric relation
+            dedup=True,
+        )
 
     def degree_buckets(self, thresholds) -> list[np.ndarray]:
         """Vertex-id arrays per degree class: (0, t0], (t0, t1], ..., (tk-1, inf)."""
@@ -123,6 +158,36 @@ def padded_ragged(row_offsets: np.ndarray, col_indices: np.ndarray, width: int,
     keep = within < width
     out[rows[keep], within[keep]] = col_indices[keep]
     return out
+
+
+def compose_pairs(
+    row_offsets_a: np.ndarray,
+    col_indices_a: np.ndarray,
+    row_offsets_b: np.ndarray,
+    col_indices_b: np.ndarray,
+) -> tuple[np.ndarray, np.ndarray]:
+    """All length-2 paths ``v -A-> u -B-> w`` as raw ``(v, w)`` pairs.
+
+    Behind both the square graph (``A = B = G``) and the bipartite
+    column-conflict relation (``A`` = cols→rows, ``B`` = rows→cols).  Pairs
+    are not deduplicated and include ``v == w`` round trips; callers clean
+    up via ``csr_from_edges``.  O(Σ_u deg_A·deg_B) time and memory.
+    """
+    n_a = row_offsets_a.shape[0] - 1
+    deg_a = np.diff(row_offsets_a).astype(np.int64)
+    deg_b = np.diff(row_offsets_b).astype(np.int64)
+    src_a = np.repeat(np.arange(n_a, dtype=np.int64), deg_a)  # v per A-edge
+    mid = col_indices_a.astype(np.int64)                      # u per A-edge
+    lens = deg_b[mid]                                         # fan-out per A-edge
+    total = int(lens.sum())
+    if total == 0:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    v = np.repeat(src_a, lens)
+    starts = np.repeat(row_offsets_b[:-1].astype(np.int64)[mid], lens)
+    ends = np.cumsum(lens)
+    within = np.arange(total, dtype=np.int64) - np.repeat(ends - lens, lens)
+    w = col_indices_b[starts + within].astype(np.int64)
+    return v, w
 
 
 def csr_from_edges(

@@ -1,8 +1,9 @@
 // What the port's kernels share: the loser rule of K1, K3 and K5, the
-// warp-level FirstFit of K1, K2, K3 and K4 (superstep_csr.cu,
-// tile_kernels.cu), and the pieces every kernel library has. Each csrc/*.cu builds into a library of
-// its own (repro_torch/kernels/build.py), so the extern "C" function below
-// is defined once per library.
+// warp-level FirstFit of K1, K2, K3, K4 and K6 (superstep_csr.cu,
+// tile_kernels.cu, d2_kernels.cu), and the pieces every kernel library
+// has. Each csrc/*.cu builds into a library of its own
+// (repro_torch/kernels/build.py), so the extern "C" function below is
+// defined once per library.
 //
 // FirstFit: the smallest colour in [1, W+1] absent from a row of colours.
 // Colours 1..32 are kept as a per-lane register mask OR-reduced across the

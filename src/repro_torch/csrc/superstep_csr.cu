@@ -16,8 +16,8 @@
 //   Writes (need ? ff : color(v), need). It reads `packed` and never writes
 //   it: every class of a superstep reads the same iteration-start snapshot.
 //
-//   Bound on the card: bytes. Per worklist entry it reads wl, R[v] and
-//   packed[v] and writes two words (20 B); per neighbour it reads C and
+//   Bound on the card: bytes. Per worklist entry it reads wl, R[v], R[v+1]
+//   and packed[v] and writes two words (24 B); per neighbour it reads C and
 //   packed[u] (8 B), scattered. Operations per byte are a handful of
 //   integer ops, far below the card's ratio.
 //
@@ -34,9 +34,14 @@
 //   Sentinels: worklists are padded with n; packed[n] == 0, so a sentinel
 //   has degree 0 and colour 0 and reads no row. The caller masks
 //   need &= v < n and writes 0 to slot n, as repro's caller does.
-//   Lanes at or past deg(v) are inert in the reference (their colour is 0:
-//   never equal to a nonzero colour, never forbidden), so looping the lanes
-//   up to min(deg(v), W) computes the same thing.
+//   v's row is C[R[v] : R[v+1]], cut to W lanes; lanes past it are inert in
+//   the reference (their colour is 0: never equal to a nonzero colour,
+//   never forbidden), so looping the lanes up to min(R[v+1] - R[v], W)
+//   computes the same thing. The row's length comes from R, not from the
+//   packed degree: over G^2 (distance-2, precomputed) the packed degree is
+//   the original graph's, which the loser rule reads, and the row is G^2's.
+//   (src/repro's Pallas kernel masks at the packed degree and so reads only
+//   the first deg_G(v) lanes of a G^2 row.)
 //
 // ---------------------------------------------------------------------------
 // K2 serial_tail_csr_kernel
@@ -93,7 +98,7 @@ superstep_csr_kernel(const int* __restrict__ wl, const int* __restrict__ row_sta
   const int my_c = mypk & 0xFFFF;
   const int my_d = mypk >> 16;
   const int start = row_starts[min(v, n - 1)];
-  const int d = min(my_d, W);
+  const int d = v < n ? min(row_starts[v + 1] - start, W) : 0;
 
   // colour this lane's neighbour shows to FirstFit: neighbours v beats
   // (same colour, v wins the rule) count as cleared

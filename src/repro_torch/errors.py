@@ -1,12 +1,12 @@
 """Structured errors of the port (counterpart of ``repro.errors``).
 
-Only the two classes this slice raises are here; the rest of the error
-surface (``IngestError``, ``NonConvergenceError``, ``Overloaded``,
-``SessionEvicted``) arrives with ROADMAP item A10.
+Only the classes the ported slices raise are here; the rest of the error
+surface (``IngestError``, ``Overloaded``, ``SessionEvicted``) arrives with
+ROADMAP item A10.
 """
 from __future__ import annotations
 
-__all__ = ["ReproError", "CapacityError"]
+__all__ = ["ReproError", "CapacityError", "NonConvergenceError"]
 
 
 class ReproError(Exception):
@@ -31,4 +31,12 @@ class CapacityError(ReproError, ValueError):
     The packed ``color | deg << 16`` word has a hard bit budget
     (``repro_torch.ingest.PACKED_GATHER_MAX_DEG``); the engine refuses past
     it rather than silently corrupting colors.
+    """
+
+
+class NonConvergenceError(ReproError, RuntimeError, ValueError):
+    """A speculative run exhausted its iteration budget without converging
+    and the caller asked for a refusal (``on_fail="raise"``).  Inherits both
+    legacy bases of ``repro``'s class: its dynamic engine raised
+    ``RuntimeError`` here, its bipartite compressor ``ValueError``.
     """

@@ -1,10 +1,12 @@
-"""numpy graph generators: a copy of ``repro.graphs`` without the Jacobian
-(bipartite) patterns, which arrive with the distance-2 slice (A8)."""
+"""numpy graph generators: a copy of ``repro.graphs``, the Jacobian
+(bipartite) patterns included."""
 from repro_torch.graphs.generators import (
     erdos_renyi,
     grid2d,
     grid3d,
     honeycomb,
+    jacobian_band,
+    jacobian_tall_skinny,
     power_law,
     road,
     small_world,
@@ -21,6 +23,8 @@ __all__ = [
     "grid2d",
     "grid3d",
     "honeycomb",
+    "jacobian_band",
+    "jacobian_tall_skinny",
     "power_law",
     "road",
     "small_world",

@@ -20,6 +20,8 @@ __all__ = [
     "road",
     "small_world",
     "power_law",
+    "jacobian_band",
+    "jacobian_tall_skinny",
 ]
 
 
@@ -129,3 +131,35 @@ def power_law(n: int, avg_degree: float = 7.0, exponent: float = 2.2, seed: int 
     src = rng.choice(n, size=m, p=p)
     dst = rng.choice(n, size=m, p=p)
     return csr_from_edges(n, src, dst)
+
+
+def jacobian_band(n_rows: int, band: int = 2, n_cols: int | None = None):
+    """Banded Jacobian pattern: row i is nonzero in columns [i-band, i+band].
+
+    Any interior row holds ``2·band+1`` pairwise-conflicting columns, and
+    columns with equal index mod ``2·band+1`` never share a row, so the
+    optimal column count is exactly ``min(2·band+1, n_cols)``.
+    """
+    from repro_torch.d2.bipartite import BipartiteGraph
+
+    n_cols = n_rows if n_cols is None else n_cols
+    rows = np.repeat(np.arange(n_rows, dtype=np.int64), 2 * band + 1)
+    cols = rows + np.tile(np.arange(-band, band + 1), n_rows)
+    keep = (cols >= 0) & (cols < n_cols)
+    return BipartiteGraph.from_coo(n_rows, n_cols, rows[keep], cols[keep])
+
+
+def jacobian_tall_skinny(
+    n_rows: int, n_cols: int, nnz_per_row: int = 4, seed: int = 0
+):
+    """Random tall-skinny Jacobian pattern (n_rows >> n_cols): many
+    observations over few parameters, each row touching a handful of
+    columns."""
+    from repro_torch.d2.bipartite import BipartiteGraph
+
+    rng = np.random.default_rng(seed)
+    nnz = min(nnz_per_row, n_cols)
+    rows = np.repeat(np.arange(n_rows, dtype=np.int64), nnz)
+    # vectorized sample-without-replacement per row (n_cols is small)
+    cols = np.argsort(rng.random((n_rows, n_cols)), axis=1)[:, :nnz].ravel()
+    return BipartiteGraph.from_coo(n_rows, n_cols, rows, cols)

@@ -22,7 +22,7 @@ __all__ = ["BUILD_DIR", "NVCC_FLAGS", "SOURCES", "build", "load"]
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
-SOURCES = ("superstep_csr", "tile_kernels")
+SOURCES = ("superstep_csr", "tile_kernels", "d2_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -50,7 +50,7 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
 
 
-# warps a block of K1, K3 or K4 runs, each with its own FirstFit bitset
+# warps a block of K1, K3, K4 or K6 runs, each with its own FirstFit bitset
 WARPS_PER_BLOCK = 8
 
 

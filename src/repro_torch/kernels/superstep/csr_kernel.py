@@ -5,14 +5,16 @@ hand-written CUDA in ``repro_torch/csrc/superstep_csr.cu`` (its header says
 what each replaces, what bounds it and how its design answers that).  Each
 kernel has here:
 
-* a wrapper (``superstep_csr``, ``serial_tail_csr``) that launches the
-  kernel for CUDA tensors and takes the plain version for CPU tensors —
-  nothing else decides the path, and a CUDA tensor never reaches the plain
-  version;
-* a plain PyTorch version (``superstep_csr_ref``, ``serial_tail_csr_ref``)
-  that repeats the kernel's arithmetic on CPU tensors;
-* a launch counter, ``wrapper.launches``, raised by one where the kernel is
-  launched and nowhere else.
+* a wrapper (``superstep_csr``; ``serial_tail_csr``, and for rows the
+  caller lays out ``serial_tail_rows``) that launches the kernel for CUDA
+  tensors and takes the plain version for CPU tensors — nothing else
+  decides the path, and a CUDA tensor never reaches the plain version;
+* a plain PyTorch version (``superstep_csr_ref``, ``serial_tail_csr_ref``,
+  ``serial_tail_rows_ref``) that repeats the kernel's arithmetic on CPU
+  tensors;
+* a launch counter, ``superstep_csr.launches`` and
+  ``serial_tail_csr.launches``, raised by one where the kernel is launched
+  and nowhere else.
 
 All arrays are int32.  ``row_starts``/``col_padded``/``deg_ext`` are the
 ``DeviceCSR`` arrays; ``packed`` is the ``(n + 1,)`` ``color | deg << 16``
@@ -34,6 +36,8 @@ from repro_torch.kernels.cuda import MAX_SMEM, check, on_cpu, stream
 __all__ = [
     "serial_tail_csr",
     "serial_tail_csr_ref",
+    "serial_tail_rows",
+    "serial_tail_rows_ref",
     "superstep_csr",
     "superstep_csr_ref",
 ]
@@ -70,20 +74,24 @@ def superstep_csr_ref(row_starts, col_padded, packed, wl, W: int,
     """Plain version of K1 on CPU tensors: ``(new_colors, need)`` for ``wl``.
 
     Gathers the ``(w, W)`` row tile from C, masks lanes at or past each
-    row's degree to the sentinel ``n`` (packed word 0: inert), decides
-    conflicts on the packed words and FirstFits the refit tile.
+    row's length ``R[v+1] - R[v]`` to the sentinel ``n`` (packed word 0:
+    inert), decides conflicts on the packed words and FirstFits the refit
+    tile.  The row length is the CSR's own, the loser rule's degree the
+    packed one: they differ over G² (distance-2), where the packed degree
+    is the original graph's.
     """
     n = row_starts.shape[0] - 1
     safe = wl.clamp(0, max(n - 1, 0)).long()
     starts = row_starts[safe]
+    row_len = torch.where(wl < n, row_starts[safe + 1] - starts, 0)
     lane = torch.arange(W, dtype=torch.int32)[None, :]
     mypk = packed[wl.long()]
     my_c = mypk & 0xFFFF
     my_d = mypk >> 16
-    # lanes past a row's degree are masked below; clamping keeps their reads
+    # lanes past a row's length are masked below; clamping keeps their reads
     # inside C when W exceeds the sentinel slack (JAX clamps gathers alike)
     idx = (starts[:, None] + lane).clamp(max=col_padded.shape[0] - 1)
-    nid = torch.where(lane < my_d[:, None], col_padded[idx.long()], n)
+    nid = torch.where(lane < row_len[:, None], col_padded[idx.long()], n)
     npk = packed[nid.long()]
     nc = npk & 0xFFFF
     nd = npk >> 16
@@ -135,34 +143,74 @@ superstep_csr.launches = 0
 # --------------------------------------------------------------------------
 # K2: the serial tail, one block walking the worklist in order
 # --------------------------------------------------------------------------
+# K2 reads, for the i-th worklist entry, the row ``col[starts[i] :
+# starts[i] + min(degs[i], W)]``.  ``serial_tail_csr`` takes those from the
+# CSR arrays (``R[v]``, ``deg(v)``); ``serial_tail_rows`` takes them as
+# given, for rows laid out by the caller (the composed two-hop rows of
+# ``repro_torch.d2``).  Both launch the one kernel and count into
+# ``serial_tail_csr.launches``.
 
-def serial_tail_csr_ref(row_starts, col_padded, deg_ext, colors_ext, wl, W: int):
+def serial_tail_rows_ref(starts, degs, col, colors_ext, wl, W: int):
     """Plain version of K2 on CPU tensors; updates ``colors_ext`` in place.
 
-    Clears the worklist's colors, then gives each vertex in order the
-    smallest color in ``[1, W+1]`` absent from its neighbors' current
-    colors (sentinels write slot ``n`` = 0).  Walks Python lists: the loop
-    is sequential by definition.
+    Clears the worklist's colors, then gives each entry in order the
+    smallest color in ``[1, W+1]`` absent from its row's current colors
+    (sentinel ids ``>= n`` write slot ``n`` = 0).  Walks Python lists: the
+    loop is sequential by definition.
     """
-    n = row_starts.shape[0] - 1
+    n = colors_ext.shape[0] - 1
     order = wl.tolist()
-    R = row_starts.tolist()
-    C = col_padded.tolist()
-    deg = deg_ext.tolist()
+    S = starts.tolist()
+    D = degs.tolist()
+    C = col.tolist()
     colors = colors_ext.tolist()
     for v in order:
         colors[v] = 0  # sentinel entries write slot n: 0
-    for v in order:
+    for v, s, d in zip(order, S, D):
         if v >= n:
             colors[n] = 0
             continue
-        s = R[v]
-        taken = {colors[u] for u in C[s: s + min(deg[v], W)]}
+        taken = {colors[u] for u in C[s: s + min(d, W)]}
         c = 1
         while c in taken:
             c += 1
         colors[v] = c
     colors_ext.copy_(torch.tensor(colors, dtype=torch.int32))
+    return colors_ext
+
+
+def serial_tail_csr_ref(row_starts, col_padded, deg_ext, colors_ext, wl, W: int):
+    """Plain version of K2 over the CSR arrays (see ``serial_tail_rows_ref``)."""
+    n = row_starts.shape[0] - 1
+    return serial_tail_rows_ref(row_starts[wl.clamp(0, max(n - 1, 0)).long()],
+                                deg_ext[wl.clamp(0, n).long()], col_padded,
+                                colors_ext, wl, W)
+
+
+def serial_tail_rows(starts, degs, col, colors_ext, wl, W: int):
+    """The serial tail as one K2 launch over rows given per worklist entry.
+
+    Entry i of ``wl`` (``order_tail`` order) reads ``col[starts[i] :
+    starts[i] + min(degs[i], W)]``; ``W`` bounds every row.  Updates
+    ``colors_ext`` (``n + 1`` slots, slot ``n`` = 0) in place and returns it.
+    """
+    n = colors_ext.shape[0] - 1
+    T = wl.shape[0]
+    cpu = _on_cpu(starts, degs, col, colors_ext, wl)
+    if starts.shape[0] != T or degs.shape[0] != T:
+        raise ValueError(f"starts and degs need one entry per worklist entry ({T})")
+    if T == 0 or n == 0:
+        return colors_ext
+    if cpu:
+        return serial_tail_rows_ref(starts, degs, col, colors_ext, wl, W)
+    if (int(W) + 32) // 32 * 4 > MAX_SMEM:
+        raise ValueError(f"tail width W={W} needs more shared memory than a block has")
+    lib = _lib()
+    rc = lib.repro_serial_tail_csr(
+        wl.data_ptr(), starts.data_ptr(), degs.data_ptr(), col.data_ptr(),
+        colors_ext.data_ptr(), T, int(W), n, stream(wl.device))
+    serial_tail_csr.launches += 1
+    check(lib, rc, "serial_tail_csr")
     return colors_ext
 
 
@@ -174,28 +222,19 @@ def serial_tail_csr(row_starts, col_padded, deg_ext, colors_ext, wl, W: int):
     returns it.
     """
     n = row_starts.shape[0] - 1
-    T = wl.shape[0]
     cpu = _on_cpu(row_starts, col_padded, deg_ext, colors_ext, wl)
-    if T == 0 or n == 0:
+    if wl.shape[0] == 0 or n == 0:
         return colors_ext
     if cpu:
         return serial_tail_csr_ref(row_starts, col_padded, deg_ext, colors_ext,
                                    wl, W)
-    if (int(W) + 32) // 32 * 4 > MAX_SMEM:
-        raise ValueError(f"tail width W={W} needs more shared memory than a block has")
     if colors_ext.shape[0] != n + 1:
         raise ValueError(
             f"colors_ext has {colors_ext.shape[0]} slots, expected n + 1 = {n + 1}")
     # read ahead by the kernel: neither depends on the colors
     starts = row_starts[wl.clamp(0, max(n - 1, 0))]
     degs = deg_ext[wl.clamp(0, n)]
-    lib = _lib()
-    rc = lib.repro_serial_tail_csr(
-        wl.data_ptr(), starts.data_ptr(), degs.data_ptr(), col_padded.data_ptr(),
-        colors_ext.data_ptr(), T, int(W), n, stream(wl.device))
-    serial_tail_csr.launches += 1
-    check(lib, rc, "serial_tail_csr")
-    return colors_ext
+    return serial_tail_rows(starts, degs, col_padded, colors_ext, wl, W)
 
 
 serial_tail_csr.launches = 0

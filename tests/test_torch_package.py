@@ -18,9 +18,23 @@ import torch
 import repro_torch
 from repro_torch.core.coloring import order_tail, run_ragged_engine
 from repro_torch.core.csr import CSRGraph, DeviceCSR, csr_from_edges
+from repro_torch.d2 import (
+    compress_jacobian_pattern,
+    d2_sgr_step,
+    validate_bipartite,
+    validate_d2,
+)
 from repro_torch.errors import CapacityError
-from repro_torch.graphs import build_graph, erdos_renyi, grid2d, power_law
+from repro_torch.graphs import (
+    build_graph,
+    erdos_renyi,
+    grid2d,
+    jacobian_band,
+    jacobian_tall_skinny,
+    power_law,
+)
 from repro_torch.kernels.conflict.kernel import conflict_tile, conflict_tile_ref
+from repro_torch.kernels.d2.kernel import d2_firstfit, d2_firstfit_ref
 from repro_torch.kernels.firstfit.kernel import firstfit_tile, firstfit_tile_ref
 from repro_torch.kernels.superstep.csr_kernel import (
     serial_tail_csr,
@@ -35,7 +49,7 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 FIELDS = ("iterations", "work_items", "padded_work", "class_cells", "converged")
 KERNELS = (superstep_csr, serial_tail_csr, superstep_tile, firstfit_tile,
-           conflict_tile)
+           conflict_tile, d2_firstfit)
 
 
 @pytest.fixture
@@ -98,6 +112,37 @@ def _tile_inputs(W, seed=6, w=300, n=1000):
     return tuple(torch.from_numpy(a) for a in (ids, nid, my_c, nc, my_d, nd))
 
 
+def _d2_tiles(w, W1, W2, seed=7, full_rows=4):
+    """Random hop-1 ``(w, W1)`` and hop-2 ``(w, W2)`` colour tiles for K6:
+    zeros, colours past the bound, and ``full_rows`` rows holding every
+    colour in 1..W1+W2 (answer W1 + W2 + 1; for W1 + W2 >= 32 through the
+    shared-bitset path)."""
+    rng = np.random.default_rng(seed)
+    hi = W1 + W2 + 3
+    nc1 = rng.integers(0, hi, (w, W1)).astype(np.int32)
+    nc2 = rng.integers(0, hi, (w, W2)).astype(np.int32)
+    nc1[: w // 3] %= 9  # low colours: rows where 1..32 may all be taken
+    for i in range(min(w, full_rows)):
+        perm = rng.permutation(W1 + W2) + 1
+        nc1[i], nc2[i] = perm[:W1], perm[W1:]
+    return torch.from_numpy(nc1), torch.from_numpy(nc2)
+
+
+def _d2_steps(g, device, include_first_hop=True, steps=4):
+    """``d2_sgr_step`` from the all-zero start on ``device``: the list of
+    ``(colors_ext, wl, count)`` after each step, on the host."""
+    adj = torch.from_numpy(g.padded_adjacency()).to(device)
+    deg = torch.from_numpy(np.concatenate([g.degrees, [0]]).astype(np.int32)).to(device)
+    colors = torch.zeros(g.n + 1, dtype=torch.int32, device=device)
+    wl = torch.arange(g.n, dtype=torch.int32, device=device)
+    out = []
+    for _ in range(steps):
+        colors, wl, count = d2_sgr_step(adj, adj, deg, colors, wl,
+                                        include_first_hop=include_first_hop)
+        out.append((colors.cpu().clone(), wl.cpu(), int(count)))
+    return out
+
+
 def test_wrappers_take_plain_versions_on_cpu_and_count_no_launch(zero_counts):
     g, dev, packed, wl = _k1_inputs()
     W = dev.max_width
@@ -117,12 +162,19 @@ def test_wrappers_take_plain_versions_on_cpu_and_count_no_launch(zero_counts):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert torch.equal(conflict_tile(*args, "id"), conflict_tile_ref(*args, "id"))
     assert torch.equal(firstfit_tile(args[3]), firstfit_tile_ref(args[3]))
+    nc1, nc2 = _d2_tiles(40, 26, 64)
+    assert torch.equal(d2_firstfit(nc1, nc2), d2_firstfit_ref(nc1, nc2))
     g = build_graph("rmat-g", 0.05)
     r = repro_torch.color(g, device="cpu")
     assert r.iterations > 2 and r.class_cells[-1][0] == r.class_cells[0][0]
     for opts in (dict(engine="classic"), dict(engine="padded"),
                  dict(coarsen_lanes=512, mode="fused")):
         assert repro_torch.color(g, device="cpu", **opts).converged
+    g = erdos_renyi(300, 5.0, seed=1)
+    for strategy in ("precomputed", "onthefly"):
+        assert validate_d2(g, repro_torch.color(g, "distance2", device="cpu",
+                                                strategy=strategy).colors)
+    _d2_steps(g, "cpu")
     assert [k.launches for k in KERNELS] == [0] * len(KERNELS)
 
 
@@ -142,7 +194,10 @@ NOT_PORTED = [
     ("ensure-valid", (), dict(ensure_valid=True), "A10"),
     ("algorithm-serial", ("serial",), {}, "A5"),
     ("algorithm-jp", ("jp",), {}, "A5"),
-    ("algorithm-distance2", ("distance2",), {}, "A8"),
+    ("algorithm-multihash", ("multihash",), {}, "A5"),
+    ("algorithm-threestep", ("threestep",), {}, "A5"),
+    ("distance2-trace", ("distance2",), dict(trace=True), "A6"),
+    ("distance2-sharded", ("distance2",), dict(engine="sharded"), "A11"),
     ("algorithm-dynamic", ("dynamic",), {}, "A9"),
 ]
 
@@ -212,7 +267,8 @@ def test_auto_backends_run_on_cpu(backend):
 
 
 def test_public_surface():
-    assert repro_torch.algorithms() == ("data_driven", "fused")
+    assert repro_torch.algorithms() == ("bipartite", "data_driven", "distance2",
+                                        "fused")
     assert repro_torch.get_algorithm("data_driven").__name__ == "color_data_driven"
     assert issubclass(repro_torch.CapacityError, repro_torch.ReproError)
     o = repro_torch.ColorOptions.normalize(heuristic="id", tiling=(8, 16))
@@ -311,7 +367,7 @@ def test_cuda_tile_kernels_match_plain(cuda_device, zero_counts, W, heuristic):
     assert torch.equal(conflict_tile_ref(*args, heuristic),
                        conflict_tile(*gpu, heuristic).cpu())
     assert torch.equal(firstfit_tile_ref(args[3]), firstfit_tile(gpu[3]).cpu())
-    assert [k.launches for k in KERNELS] == [0, 0, 1, 1, 1]
+    assert [k.launches for k in KERNELS] == [0, 0, 1, 1, 1, 0]
 
 
 @pytest.mark.cuda
@@ -351,3 +407,73 @@ def test_cuda_wrappers_reject_other_dtypes_and_mixed_devices(cuda_device):
         conflict_tile(*gpu_args[:3], args[3], *gpu_args[4:])
     with pytest.raises(ValueError, match="int32"):
         superstep_tile(*gpu_args[:5], gpu_args[5].long())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W1,W2", [(1, 1), (1, 31), (8, 64), (26, 676), (32, 31),
+                                   (33, 4096)])
+def test_cuda_k6_matches_plain(cuda_device, zero_counts, W1, W2):
+    for w in (1, 37, 1000):
+        nc1, nc2 = _d2_tiles(w, W1, W2, seed=W1 * W2 + w)
+        got = d2_firstfit(nc1.to(cuda_device), nc2.to(cuda_device))
+        assert torch.equal(d2_firstfit_ref(nc1, nc2), got.cpu())
+    assert d2_firstfit.launches == 3
+    assert [k.launches for k in KERNELS[:-1]] == [0] * (len(KERNELS) - 1)
+
+
+@pytest.mark.cuda
+def test_cuda_k6_rejects_other_dtypes_and_mixed_devices(cuda_device):
+    nc1, nc2 = _d2_tiles(16, 4, 12)
+    with pytest.raises(ValueError, match="int32"):
+        d2_firstfit(nc1.to(cuda_device).long(), nc2.to(cuda_device))
+    with pytest.raises(ValueError, match="all lie"):
+        d2_firstfit(nc1.to(cuda_device), nc2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("include_first_hop", [True, False], ids=["K6", "K4"])
+def test_cuda_d2_sgr_step_matches_cpu(cuda_device, zero_counts, include_first_hop):
+    g = erdos_renyi(2000, 6.0, seed=4)
+    want = _d2_steps(g, "cpu", include_first_hop)
+    got = _d2_steps(g, cuda_device, include_first_hop)
+    for (wc, wwl, wn), (gc, gwl, gn) in zip(want, got):
+        assert torch.equal(wc, gc) and torch.equal(wwl, gwl) and wn == gn
+    step_kernel = d2_firstfit if include_first_hop else firstfit_tile
+    assert step_kernel.launches == 4 and conflict_tile.launches == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm,graph,opts,kernels", [
+    ("distance2", "rmat-g", dict(strategy="precomputed"),
+     (superstep_csr, serial_tail_csr)),
+    ("distance2", "rmat-g", dict(strategy="onthefly"), (superstep_tile,)),
+    ("distance2", "thermal2", dict(strategy="onthefly", mode="fused"),
+     (superstep_tile, serial_tail_csr)),
+    ("distance2", "rmat-er", dict(strategy="onthefly", tail_serial=10**6),
+     (serial_tail_csr,)),
+    ("bipartite", "band", dict(strategy="precomputed"), (superstep_csr,)),
+    ("bipartite", "tall-skinny", dict(strategy="onthefly"), (superstep_tile,)),
+], ids=["d2-precomputed", "d2-onthefly", "d2-onthefly-fused", "d2-composed-tail",
+        "bipartite-precomputed", "bipartite-onthefly"])
+def test_cuda_d2_engines_match_cpu(cuda_device, zero_counts, algorithm, graph,
+                                   opts, kernels):
+    g = {"band": lambda: jacobian_band(4096, band=3),
+         "tall-skinny": lambda: jacobian_tall_skinny(2000, 64, 4, seed=1)}.get(
+        graph, lambda: build_graph(graph, 0.02))()
+    a = repro_torch.color(g, algorithm, device=cuda_device, **opts)
+    assert all(k.launches > 0 for k in kernels)
+    b = repro_torch.color(g, algorithm, device="cpu", **opts)
+    np.testing.assert_array_equal(a.colors, b.colors)
+    assert all(getattr(a, f) == getattr(b, f) for f in FIELDS)
+    valid = validate_d2 if algorithm == "distance2" else validate_bipartite
+    assert valid(g, a.colors)
+
+
+@pytest.mark.cuda
+def test_cuda_compress_jacobian_pattern_matches_cpu(cuda_device, zero_counts):
+    bg = jacobian_band(4096, band=3)
+    got = compress_jacobian_pattern(bg, device=cuda_device)
+    assert superstep_csr.launches + superstep_tile.launches > 0
+    want = compress_jacobian_pattern(bg, device="cpu")
+    assert got.num_groups == want.num_groups == 7
+    np.testing.assert_array_equal(want.seed_matrix(), got.seed_matrix())
