@@ -13,7 +13,13 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 3. K1      — the superstep kernel against its plain version, bit for bit,
              over class widths 1..4096, both heuristics, sentinel-padded
              worklists of odd lengths.
-4. K2      — the serial-tail kernel against its plain version, bit for bit.
+4. K2      — the serial-tail kernel against its plain version, bit for bit,
+             through its wrappers and in each layout (a thread or a warp an
+             entry): CSR tails of 1..4096 entries at W = 8 and 376, a
+             100,000-vertex path in id order (a chain as deep as the tail),
+             ``grid2d(300, 300)`` in ``order_tail`` order, rows laid out by
+             hand (asymmetric, self, duplicate and sentinel lanes, colours
+             past 32) and composed two-hop rows at W = 702.
 5. K3-K5   — the gathered-tile kernels against their plain versions, bit
              for bit: widths 1..4096, both heuristics, sentinel rows, rows
              whose colours 1..32 are all taken.
@@ -21,7 +27,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
              bit for bit: W1 in 1..33, W2 in 1..4096, w in 1, 37, 1000,
              random rows and rows holding every colour 1..W1+W2.
 7. latency — a dependent-load chain (``csrc/latency_probe.cu``) times one
-             L1 hit and one L2 hit: K2's chain bound is T such steps.
+             L1 hit and one L2 hit: K2's depth bound is depth L2 hits.
 8. slice   — every SUITE graph at scale 0.25 through ``color`` on the card
              and on the CPU: every ``ColoringResult`` field equal; then the
              classic, padded, chunked and fused options on rmat-er, rmat-g
@@ -42,7 +48,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
              path runs, rmat-er's default colors equal to the serial-greedy
              oracle; times, per-kernel times from CUDA events at the main
              paths' shapes (each kernel held against its plain version
-             there), peak memory, a profiler line.
+             there; K2 also in each layout, with its tail's dependency
+             depth, computed on the host, and the bound max(bytes, depth x
+             L2)), peak memory, a profiler line.
 10. full distance-2 — ``distance2`` on rmat-er and thermal2 (``auto``
              composes the two hops on the fly: K3, K2 over composed rows),
              ``distance2`` precomputed on thermal2 (K1 over G², K2; the
@@ -51,8 +59,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
              ``compress_jacobian_pattern`` into 7 groups) and
              ``d2_sgr_step`` to convergence on rmat-er (K6, K5): valid
              colourings, launches, times; K6 at rmat-er's and thermal2's
-             first-step shapes and the composed-row tail at W = 702 against
-             their bounds and plain versions.
+             first-step shapes and the composed-row tails of rmat-er (W =
+             702), thermal2 (W = 72) and the banded Jacobian (W = 49, a
+             chain as deep as the tail), each layout, against their bounds
+             and plain versions.
 
 The line before the last is the kernels' JSON record, and the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
@@ -119,12 +129,14 @@ from repro_torch.kernels.firstfit.kernel import (  # noqa: E402
     firstfit_tile_ref,
 )
 from repro_torch.kernels.superstep.csr_kernel import (  # noqa: E402
+    _launch_tail,
     serial_tail_csr,
     serial_tail_csr_ref,
     serial_tail_rows,
     serial_tail_rows_ref,
     superstep_csr,
     superstep_csr_ref,
+    tail_ranks,
 )
 from repro_torch.kernels.superstep.kernel import (  # noqa: E402
     superstep_tile,
@@ -181,6 +193,54 @@ def bound_ms(deg_ext: np.ndarray, wl: np.ndarray, W: int, per_entry: int) -> flo
     """
     nbytes = int(wl.size) * per_entry + int(np.minimum(deg_ext[wl], W).sum()) * 8
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def tail_depth(src: np.ndarray, dst: np.ndarray, T: int) -> tuple[int, int]:
+    """``(depth, widest level)`` of K2's dependency DAG over T tail entries,
+    in which entry ``dst`` waits for entry ``src < dst`` (edges may repeat):
+    Kahn's layering on the host in numpy, one round per level."""
+    src = np.asarray(src, np.int64)
+    dst = np.asarray(dst, np.int64)
+    targets = dst[np.argsort(src, kind="stable")]
+    ptr = np.zeros(T + 1, np.int64)
+    np.cumsum(np.bincount(src, minlength=T), out=ptr[1:])
+    indeg = np.bincount(dst, minlength=T)
+    frontier = np.flatnonzero(indeg == 0)
+    depth = widest = 0
+    while frontier.size:
+        depth += 1
+        widest = max(widest, int(frontier.size))
+        lo = ptr[frontier]
+        cnt = ptr[frontier + 1] - lo
+        total = int(cnt.sum())
+        if not total:
+            break
+        idx = np.repeat(lo - (np.cumsum(cnt) - cnt), cnt) + np.arange(total)
+        hit, times = np.unique(targets[idx], return_counts=True)
+        indeg[hit] -= times
+        frontier = hit[indeg[hit] == 0]
+    return depth, widest
+
+
+def csr_tail_depth(g, tail: np.ndarray) -> tuple[int, int]:
+    """``tail_depth`` of a CSR tail (real ids, distinct, in K2's order):
+    entry rank[v] waits for each neighbour u of v in the tail with
+    rank[u] < rank[v]."""
+    rank = np.full(g.n, -1, np.int64)
+    rank[tail] = np.arange(tail.size)
+    rv = rank[np.repeat(np.arange(g.n), g.degrees)]
+    ru = rank[g.col_indices]
+    keep = (ru >= 0) & (rv >= 0) & (ru < rv)
+    return tail_depth(ru[keep], rv[keep], int(tail.size))
+
+
+def k2_bound(bytes_ms: float, depth: int, lat: dict) -> dict:
+    """K2's bound: the larger of its bytes over HBM's rate and its depth
+    times one L2 round trip (``csrc/latency_probe.cu``)."""
+    chain_ms = depth * lat["l2_ns"] / 1e6
+    return {"bytes_bound_ms": bytes_ms, "depth_bound_ms": chain_ms,
+            "bound_ms": max(bytes_ms, chain_ms),
+            "bound_by": "bytes" if bytes_ms >= chain_ms else "depth"}
 
 
 # --------------------------------------------------------------------------
@@ -260,16 +320,60 @@ def check_k1(dev_cuda):
           "random, low and clique colors, sentinels)", flush=True)
 
 
-def check_k2(dev_cuda):
-    rng = np.random.default_rng(13)
+def csr_tail(g, wl, colors):
+    """K2's row form of the CSR tail ``wl``: ``(starts, degs, col, colors,
+    wl)`` CPU tensors, as ``serial_tail_csr`` lays them out."""
+    cpu = DeviceCSR.from_csr(g, "cpu")
+    wl = torch.as_tensor(wl, dtype=torch.int32)
+    return (cpu.row_starts[wl.clamp(0, max(g.n - 1, 0)).long()],
+            cpu.deg_ext[wl.clamp(0, g.n).long()], cpu.col_padded,
+            torch.from_numpy(colors), wl)
+
+
+def hand_rows(rng, n: int, T: int, W: int):
+    """Rows laid out by hand for ``serial_tail_rows``: each of T entries (a
+    random subset of n, nine sentinel entries spread among them) reads up to
+    W random ids of the whole graph (earlier and later entries, so rows are
+    not symmetric, and outside vertices), some lanes turned into the entry
+    itself, copies of another lane or the sentinel n. Outside colours run to
+    80; every fourth row reads outside vertices holding 1..W one each, so
+    FirstFit answers past 32 (W + 1 or the colour a self or sentinel lane
+    knocked out)."""
+    ids = rng.choice(n, T - 9, replace=False).astype(np.int32)
+    wl = np.insert(ids, rng.integers(0, T - 9, 9), n).astype(np.int32)
+    degs = rng.integers(0, W + 1, T).astype(np.int32)
+    degs[::4] = W
+    starts = np.concatenate([[0], np.cumsum(degs[:-1] + 3)]).astype(np.int32)
+    col = rng.integers(0, n + 1, int(starts[-1]) + W + 3).astype(np.int32)
+    colors = rng.integers(0, 81, n + 1).astype(np.int32)
+    outside = np.setdiff1d(np.arange(n), ids)
+    pool = rng.choice(outside, W, replace=False)
+    colors[pool] = np.arange(1, W + 1)
+    colors[n] = 0
+    for i in range(T):
+        s, d = starts[i], degs[i]
+        if i % 4 == 0:
+            col[s:s + d] = rng.permutation(pool)[:d]
+        lanes = rng.random(d)
+        row = col[s:s + d]
+        row[lanes < 0.05] = wl[i]  # self lanes (a sentinel entry: n)
+        if d:
+            row[(lanes >= 0.05) & (lanes < 0.1)] = row[0]  # duplicates
+        row[(lanes >= 0.1) & (lanes < 0.13)] = n
+    return (torch.from_numpy(starts), torch.from_numpy(degs), torch.from_numpy(col),
+            torch.from_numpy(colors), torch.from_numpy(wl))
+
+
+def k2_cases(rng):
+    """(label, W, (starts, degs, col, colors, wl), CSR graph or None) CPU
+    inputs for the K2 check. The CSR cases go through ``serial_tail_csr``
+    too."""
     graphs = {8: grid2d(80, 80, diagonals=True),
               376: k1_graph(376, rng, n=6000)}
-    cases = 0
     for W, g in graphs.items():
         if g.max_degree > W:
             fail(f"K2 test graph has max degree {g.max_degree} > W={W}")
-        cpu = DeviceCSR.from_csr(g, "cpu")
-        gpu = DeviceCSR.from_csr(g, dev_cuda)
+        deg_ext = torch.from_numpy(np.concatenate([g.degrees, [0]]).astype(np.int32))
         # the widest rows always join the worklist; "low" colours 1..32 on
         # the vertices outside it fill a hub's first bitset word, so K2's
         # shared-bitset path (all of 1..32 taken) runs too
@@ -282,22 +386,69 @@ def check_k2(dev_cuda):
             ids = np.concatenate([hubs[:k], rng.choice(rest, T - s - k, replace=False)])
             wl = order_tail(torch.from_numpy(
                 np.concatenate([ids, np.full(s, g.n, np.int32)]).astype(np.int32)),
-                cpu.deg_ext)
+                deg_ext)
             colors = rng.integers(lo, hi + 1, g.n + 1).astype(np.int32)
             colors[g.n] = 0
-            want = serial_tail_csr_ref(cpu.row_starts, cpu.col_padded, cpu.deg_ext,
-                                       torch.from_numpy(colors.copy()), wl, W)
-            got = serial_tail_csr(gpu.row_starts, gpu.col_padded, gpu.deg_ext,
-                                  torch.from_numpy(colors).to(dev_cuda),
-                                  wl.to(dev_cuda), W)
+            yield f"T={T} {mode}", W, csr_tail(g, wl, colors), g
+    # a chain as deep as the tail: a path in id order (entry i waits on i-1)
+    n = 100_000
+    path = csr_from_edges(n, np.arange(n - 1), np.arange(1, n))
+    colors = np.zeros(n + 1, np.int32)
+    for W in (2, 64):
+        yield "path 100000 in id order", W, csr_tail(path, np.arange(n), colors), path
+    grid = grid2d(300, 300, diagonals=True)
+    wl = order_tail(torch.arange(grid.n, dtype=torch.int32), torch.from_numpy(
+        np.concatenate([grid.degrees, [0]]).astype(np.int32)))
+    colors = np.zeros(grid.n + 1, np.int32)
+    for W in (8, 40):
+        yield "grid2d(300, 300) order_tail", W, csr_tail(grid, wl, colors), grid
+    for W in (24, 100):
+        yield "hand rows", W, hand_rows(rng, 20_000, 4096, W), None
+    # composed two-hop rows at W = 26 * 26 + 26 = 702, as distance-2 on the
+    # fly lays them out over rmat-er (the table padded to rmat-er's dmax 26)
+    g = rmat(1 << 12, 10.0, RMAT_ER, seed=2)
+    adj = torch.from_numpy(g.padded_adjacency())
+    adj = torch.cat([adj, torch.full((g.n, 26 - adj.shape[1]), g.n, dtype=torch.int32)], 1)
+    prov = TwoHopRows(adj, adj)
+    W = prov.width
+    deg_ext = torch.from_numpy(np.concatenate([g.degrees, [0]]).astype(np.int32))
+    wl = order_tail(torch.arange(g.n, dtype=torch.int32), deg_ext)
+    colors = rng.integers(0, 40, g.n + 1).astype(np.int32)
+    colors[g.n] = 0
+    yield "composed rows (rmat 4096)", W, (
+        torch.arange(0, g.n * W, W, dtype=torch.int32),
+        torch.full((g.n,), W, dtype=torch.int32), prov.rows(wl).reshape(-1),
+        torch.from_numpy(colors), wl), None
+
+
+def check_k2(dev_cuda):
+    """K2 against its plain version, bit for bit, on every case of
+    ``k2_cases``: through ``serial_tail_rows`` (and ``serial_tail_csr`` for
+    CSR cases), and in each layout forced (``_launch_tail``)."""
+    cases = 0
+    labels = []
+    for label, W, (starts, degs, col, colors, wl), g in k2_cases(np.random.default_rng(13)):
+        want = serial_tail_rows_ref(starts, degs, col, colors.clone(), wl, W)
+        gpu = [t.to(dev_cuda) for t in (starts, degs, col, colors, wl)]
+        runs = {"rows": lambda: serial_tail_rows(*gpu[:3], gpu[3].clone(), gpu[4], W),
+                "thread": lambda: _launch_tail(*gpu[:3], gpu[3].clone(), gpu[4], W, True),
+                "warp": lambda: _launch_tail(*gpu[:3], gpu[3].clone(), gpu[4], W, False)}
+        if g is not None:
+            csr = DeviceCSR.from_csr(g, dev_cuda)
+            runs["csr"] = lambda: serial_tail_csr(csr.row_starts, csr.col_padded,
+                                                  csr.deg_ext, gpu[3].clone(), gpu[4], W)
+        for how, run in runs.items():
+            got = run()
             torch.cuda.synchronize()
             if not torch.equal(want, got.cpu()):
                 bad = (want != got.cpu()).nonzero().flatten()[:5].tolist()
-                fail(f"K2 differs from its plain version: W={W} T={T} {mode}, "
+                fail(f"K2 differs from its plain version: {label} W={W} via {how}, "
                      f"first slots {bad}")
             cases += 1
-    print(f"K2 == plain on {cases} cases (T in 1, 37, 1024, 4096; W in 8, 376; "
-          "random and low colors; sentinels)", flush=True)
+        if label not in labels:
+            labels.append(label)
+    print(f"K2 == plain on {cases} runs (both layouts and the wrappers; "
+          f"{'; '.join(labels)})", flush=True)
 
 
 # --------------------------------------------------------------------------
@@ -400,7 +551,7 @@ def check_k6(dev_cuda):
 
 
 # --------------------------------------------------------------------------
-# phase 6: dependent-load latency (K2's chain bound)
+# phase 7: dependent-load latency (K2's depth bound)
 # --------------------------------------------------------------------------
 
 def chase_ns(dev_cuda, nwords: int, level: int, steps: int) -> float:
@@ -435,7 +586,7 @@ def check_latency(dev_cuda) -> dict:
 
 
 # --------------------------------------------------------------------------
-# phase 7: card == CPU at small scale
+# phase 8: card == CPU at small scale
 # --------------------------------------------------------------------------
 
 def same_result(a, b) -> list:
@@ -568,7 +719,7 @@ def check_d2_slice(dev_cuda):
 
 
 # --------------------------------------------------------------------------
-# phase 8: the main paths at full size
+# phase 9-10: the main paths at full size
 # --------------------------------------------------------------------------
 
 PAPER = ("rmat-er", "rmat-g", "thermal2")
@@ -592,11 +743,12 @@ FULL_RUNS = [
 ]
 
 
-def kernel_times(g, dev_cuda, plain: bool) -> dict:
+def kernel_times(g, dev_cuda, lat: dict, plain: bool) -> dict:
     """K1 per class at the first real superstep's inputs (every vertex
     colored 1, after the bootstrap identity), and K2 at the stall tail's
     inputs (all n vertices in ``order_tail`` order): CUDA-event times,
-    byte bounds and, with ``plain``, the plain versions' CPU times and a
+    byte bounds (K2: also its depth and depth bound, and each layout
+    forced) and, with ``plain``, the plain versions' CPU times and a
     bit-for-bit check at these shapes."""
     gpu = DeviceCSR.from_csr(g, dev_cuda)
     deg_np = np.concatenate([g.degrees, [0]]).astype(np.int64)
@@ -626,12 +778,24 @@ def kernel_times(g, dev_cuda, plain: bool) -> dict:
     tail = order_tail(torch.arange(g.n, dtype=torch.int32, device=dev_cuda),
                       gpu.deg_ext)
     W = max(g.max_degree, 1)
+    tail_np = tail.cpu().numpy()
+    depth, widest = csr_tail_depth(g, tail_np)
     work = colors.clone()
-    k2 = {"W": W, "T": g.n,
+    k2 = {"W": W, "T": g.n, "depth": depth, "widest": widest,
           "ms": event_ms(lambda: serial_tail_csr(
               gpu.row_starts, gpu.col_padded, gpu.deg_ext, work, tail, W),
               reps=3, warm=1),
-          "bound_ms": bound_ms(deg_np, tail.cpu().numpy(), W, 20)}
+          **k2_bound(bound_ms(deg_np, tail_np, W, 20), depth, lat)}
+    # each layout forced, at the same inputs: they must agree
+    starts = gpu.row_starts[tail.clamp(0, g.n - 1)]
+    degs = gpu.deg_ext[tail]
+    for layout in ("thread", "warp"):
+        out = colors.clone()
+        k2[f"{layout}_ms"] = event_ms(lambda: _launch_tail(
+            starts, degs, gpu.col_padded, out, tail, W, layout == "thread"),
+            reps=3, warm=1)
+        if not torch.equal(out, work):
+            fail(f"K2's {layout} layout differs from the wrapper's at T={g.n}, W={W}")
     if plain:
         got = serial_tail_csr(gpu.row_starts, gpu.col_padded, gpu.deg_ext,
                               colors.clone(), tail, W)
@@ -812,7 +976,7 @@ def print_tile_recs(name: str, recs: list):
               flush=True)
 
 
-def check_full(dev_cuda) -> dict:
+def check_full(dev_cuda, lat: dict) -> dict:
     totals = {k.__name__: 0 for k in KERNELS}
     times = {}
     graphs = {}
@@ -836,13 +1000,15 @@ def check_full(dev_cuda) -> dict:
                      f"oracle in {int((want != r.colors).sum())} vertices")
         plain = name in ("rmat-er", "kkt_power")
         if label.startswith("ragged") and name in PAPER:
-            kt = kernel_times(g, dev_cuda, plain=plain)
+            kt = kernel_times(g, dev_cuda, lat, plain=plain)
             times[label] = kt
             print_tile_recs("K1", kt["k1"])
             k2 = kt["k2"]
-            print(f"  K2 W={k2['W']} T={k2['T']}: {k2['ms']:.3f} ms "
-                  f"({1e6 * k2['ms'] / k2['T']:.1f} ns/vertex; byte bound "
-                  f"{k2['bound_ms']:.4f} ms)"
+            print(f"  K2 W={k2['W']} T={k2['T']} depth={k2['depth']} (widest level "
+                  f"{k2['widest']}): {k2['ms']:.4f} ms; thread layout "
+                  f"{k2['thread_ms']:.4f} ms, warp layout {k2['warp_ms']:.4f} ms; "
+                  f"bound {k2['bound_ms']:.4f} ms by {k2['bound_by']} (bytes "
+                  f"{k2['bytes_bound_ms']:.4f}, depth x L2 {k2['depth_bound_ms']:.4f})"
                   + (f", plain {k2['plain_ms']:.1f} ms" if "plain_ms" in k2 else ""),
                   flush=True)
         elif label.startswith("classic"):
@@ -915,37 +1081,73 @@ def k6_times(g, dev_cuda, plain_rows: int) -> dict:
     return rec
 
 
-def composed_tail_times(g, dev_cuda, lat: dict, check_rows: int = 2048) -> dict:
-    """The composed-row serial tail over all n vertices in ``order_tail``
-    order (the stall tail of ``distance2`` on the fly): the whole tail
-    (segments materialized, then K2 on each) and its K2 launches alone,
-    by CUDA events; K2 over the first ``check_rows`` entries against its
-    plain version."""
-    adj = torch.from_numpy(g.padded_adjacency()).to(dev_cuda)
-    prov = TwoHopRows(adj, adj)
+def composed_depths(segs, rank: torch.Tensor, W: int) -> tuple[int, int]:
+    """Depth of the composed-row tail: over the whole tail as one DAG (what
+    the function needs) and summed over the segments' launches, which run
+    one after another (what K2's launches can reach). Each segment's edges
+    are found on the card, deduplicated, and layered on the host
+    (``tail_depth``)."""
+    src, dst, seg_depth, lo = [], [], 0, 0
+    for starts, degs, rows, ids in segs:
+        k = int(ids.shape[0])
+        rn = rank[rows.long()].view(k, W).long()
+        r = torch.arange(lo, lo + k, device=rows.device)[:, None]
+        mask = (rn >= 0) & (rn < r)
+        key = torch.unique((r.expand(k, W)[mask] << 32) | rn[mask])
+        s_, d_ = (key & 0xFFFFFFFF).cpu().numpy(), (key >> 32).cpu().numpy()
+        inside = s_ >= lo
+        seg_depth += tail_depth(s_[inside] - lo, d_[inside] - lo, k)[0]
+        src.append(s_)
+        dst.append(d_)
+        lo += k
+        del rn, mask, key
+    return tail_depth(np.concatenate(src), np.concatenate(dst), lo)[0], seg_depth
+
+
+def composed_tail_times(prov, degrees: np.ndarray, dev_cuda, lat: dict,
+                        check_rows: int = 2048) -> dict:
+    """The serial tail over the composed rows of ``prov`` (a ``TwoHopRows``),
+    all n = ``degrees.size`` vertices in ``order_tail`` order by
+    ``degrees`` (the stall tail of ``distance2`` or ``bipartite`` on the
+    fly): the whole tail (segments materialized, then K2 on each) and its
+    K2 launches alone, through the wrapper and in each layout forced, by
+    CUDA events; the depth, the bound; K2 over the first ``check_rows``
+    entries against its plain version."""
     W = prov.width
-    deg = torch.from_numpy(np.concatenate([g.degrees, [0]]).astype(np.int32)).to(dev_cuda)
-    tail = order_tail(torch.arange(g.n, dtype=torch.int32, device=dev_cuda), deg)
-    colors = torch.ones(g.n + 1, dtype=torch.int32, device=dev_cuda)
-    colors[g.n] = 0
+    n = int(degrees.size)
+    deg = torch.from_numpy(np.concatenate([degrees, [0]]).astype(np.int32)).to(dev_cuda)
+    tail = order_tail(torch.arange(n, dtype=torch.int32, device=dev_cuda), deg)
+    colors = torch.ones(n + 1, dtype=torch.int32, device=dev_cuda)
+    colors[n] = 0
     whole_ms = event_ms(lambda: _composed_tail(prov, colors.clone(), tail, W),
                         reps=1, warm=1)
     seg = TAIL_SEGMENT_CELLS // W
     segs = []
-    for lo in range(0, g.n, seg):
+    for lo in range(0, n, seg):
         ids = tail[lo:lo + seg]
         k = int(ids.shape[0])
         segs.append((torch.arange(0, k * W, W, dtype=torch.int32, device=dev_cuda),
                      torch.full((k,), W, dtype=torch.int32, device=dev_cuda),
                      prov.rows(ids).reshape(-1), ids))
-    work = colors.clone()
+    del prov
+    outs = {}
 
-    def k2_only():
+    def k2_only(layout):
+        work = colors.clone()
         work[tail.long()] = 0
         for starts, degs, rows, ids in segs:
-            serial_tail_rows(starts, degs, rows, work, ids, W)
+            if layout == "wrapper":
+                serial_tail_rows(starts, degs, rows, work, ids, W)
+            else:
+                _launch_tail(starts, degs, rows, work, ids, W, layout == "thread")
+        outs[layout] = work
 
-    k2_ms = event_ms(k2_only, reps=1, warm=1)
+    times = {layout: event_ms(lambda: k2_only(layout), reps=1, warm=1)
+             for layout in ("wrapper", "thread", "warp")}
+    if not (torch.equal(outs["thread"], outs["wrapper"])
+            and torch.equal(outs["warp"], outs["wrapper"])):
+        fail(f"K2's layouts differ over composed rows at W={W}")
+    depth, seg_depth = composed_depths(segs, tail_ranks(tail, n), W)
     starts, degs, rows, ids = segs[0]
     k = check_rows
     got = serial_tail_rows(starts[:k], degs[:k], rows[:k * W], colors.clone(),
@@ -954,15 +1156,20 @@ def composed_tail_times(g, dev_cuda, lat: dict, check_rows: int = 2048) -> dict:
         "K2 (composed rows)", lambda: serial_tail_rows_ref(
             starts[:k].cpu(), degs[:k].cpu(), rows[:k * W].cpu(),
             colors.cpu().clone(), ids[:k].cpu(), W), got, (k, W))
-    rec = {"W": W, "T": g.n, "segments": len(segs), "whole_ms": whole_ms,
-           "ms": k2_ms, "ns_per_vertex": k2_ms * 1e6 / g.n,
-           "bytes_bound_ms": (g.n * 20 + g.n * W * 8) / HBM_BYTES_PER_S * 1e3,
+    rec = {"W": W, "T": n, "segments": len(segs), "whole_ms": whole_ms,
+           "ms": times["wrapper"], "thread_ms": times["thread"], "warp_ms": times["warp"],
+           "ns_per_vertex": times["wrapper"] * 1e6 / n, "depth": depth,
+           "segment_depth": seg_depth,
+           **k2_bound((n * 20 + n * W * 8) / HBM_BYTES_PER_S * 1e3, depth, lat),
            "plain_ms": plain_ms, "plain_rows": k, "max_abs_err": err}
-    print(f"  K2 composed tail W={W} T={g.n} in {len(segs)} segments: whole tail "
-          f"{whole_ms:.3f} ms, K2 launches {k2_ms:.3f} ms ({rec['ns_per_vertex']:.1f} "
-          f"ns/vertex; byte bound {rec['bytes_bound_ms']:.3f} ms, chain T x L1 "
-          f"{g.n * lat['l1_ns'] / 1e6:.3f} ms, T x L2 {g.n * lat['l2_ns'] / 1e6:.3f} "
-          f"ms); plain {plain_ms:.1f} ms on the first {k} entries", flush=True)
+    print(f"  K2 composed tail W={W} T={n} in {len(segs)} segments: whole tail "
+          f"{whole_ms:.3f} ms, K2 launches {rec['ms']:.3f} ms ({rec['ns_per_vertex']:.1f} "
+          f"ns/vertex; thread layout {rec['thread_ms']:.3f} ms, warp layout "
+          f"{rec['warp_ms']:.3f} ms); depth {depth} (summed over the segments' "
+          f"launches {seg_depth}); bound {rec['bound_ms']:.3f} ms by {rec['bound_by']} "
+          f"(bytes {rec['bytes_bound_ms']:.3f}, depth x L2 {rec['depth_bound_ms']:.3f}, "
+          f"segments' depth x L2 {seg_depth * lat['l2_ns'] / 1e6:.3f}); plain "
+          f"{plain_ms:.1f} ms on the first {k} entries", flush=True)
     return rec
 
 
@@ -1017,7 +1224,17 @@ def check_d2_full(graphs: dict, dev_cuda, lat: dict) -> dict:
     torch.cuda.empty_cache()
     times["k6 thermal2"] = k6_times(graphs["thermal2"], dev_cuda, plain_rows=65536)
     torch.cuda.empty_cache()
-    times["k2 composed"] = composed_tail_times(g, dev_cuda, lat)
+    for key, name in (("k2 composed", "rmat-er"), ("k2 composed thermal2", "thermal2")):
+        adj = torch.from_numpy(graphs[name].padded_adjacency()).to(dev_cuda)
+        times[key] = composed_tail_times(TwoHopRows(adj, adj), graphs[name].degrees,
+                                         dev_cuda, lat)
+        del adj
+        torch.cuda.empty_cache()
+    cols2rows, rows2cols = bg.padded_halves()
+    times["k2 composed jacobian_band"] = composed_tail_times(
+        TwoHopRows(torch.from_numpy(cols2rows).to(dev_cuda),
+                   torch.from_numpy(rows2cols).to(dev_cuda), include_first_hop=False),
+        bg.col_degrees, dev_cuda, lat)
     torch.cuda.empty_cache()
     return {"launches": totals, "times": times}
 
@@ -1041,7 +1258,9 @@ def kernels_record(full: dict) -> list:
                 "max_abs_err": max(r["max_abs_err"] for r in recs),
                 "ms": statistics.fmean(r["ms"] for r in recs),
                 "plain_ms": statistics.fmean(r["plain_ms"] for r in recs),
-                "bound_ms": statistics.fmean(r["bound_ms"] for r in recs),
+                # bytes or operations: K2's depth bound is printed beside it
+                "bound_ms": statistics.fmean(r.get("bytes_bound_ms", r["bound_ms"])
+                                             for r in recs),
                 "bound_by": "bytes", "library_ms": None}
 
     csr_src = "src/repro_torch/csrc/superstep_csr.cu"
@@ -1093,7 +1312,7 @@ def main():
     check_d2_slice(dev_cuda)
     print(f"slice took {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    full = check_full(dev_cuda)
+    full = check_full(dev_cuda, lat)
     print(f"full took {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     d2 = check_d2_full(full["graphs"], dev_cuda, lat)
@@ -1101,9 +1320,6 @@ def main():
         full["launches"][k] += c
     full["times"].update(d2["times"])
     print(f"full distance-2 took {time.perf_counter() - t0:.1f} s", flush=True)
-    T = full["times"]["ragged rmat-er"]["k2"]["T"]
-    print(f"K2 chain bound at T={T}: {T * lat['l1_ns'] / 1e6:.3f} ms "
-          f"(T x L1 hit), {T * lat['l2_ns'] / 1e6:.3f} ms (T x L2 hit)")
 
     kernels = kernels_record(full)
     print(card)

@@ -10,7 +10,11 @@ two modes.
   unchunked and degrees fit the packed gather word; otherwise the engine
   gathers ``(w, W)`` tiles and launches K3 (``kernels/superstep/kernel``).
   The tail is one K2 launch (``serial_tail_csr``), or one per segment over
-  composed two-hop rows (``repro_torch.d2``).
+  composed two-hop rows (``repro_torch.d2``).  The tail's function is
+  sequential greedy in ``order_tail`` order; K2 computes it with every
+  entry at once, each waiting only for its earlier neighbours, so it is
+  bounded by the depth of that order's dependencies, not by the tail's
+  length.
 * ``padded`` — the same schedule over the dense ``(n, Δmax)`` adjacency
   table (``DenseRows``): K3 for every class, K2 for the tail.
 * ``classic`` — the two-phase super-step (``sgr_step``): FirstFit (K4,
@@ -273,7 +277,11 @@ def serial_tail_step(row1_fn, colors_ext, wl, kind: str = "bitset"):
     driver): clear the worklist's colors, then refit each vertex in order
     against the current state.  ``row1_fn(v) -> (W,)`` is the sentinel-padded
     row of one vertex.  Updates ``colors_ext`` in place.  The engines run
-    the same computation as one K2 launch (``serial_tail_csr``).
+    the same function as one K2 launch (``serial_tail_csr``), which computes
+    it in dependency order: a vertex's colour depends only on the fixed
+    colours outside the worklist and the final colours of its neighbours
+    earlier in it, so every entry runs at once and waits only for those
+    (Jones-Plassmann with the worklist position as priority).
     """
     n = colors_ext.shape[0] - 1
     colors_ext[wl.long()] = 0  # sentinel entries write slot n: 0

@@ -1,6 +1,7 @@
 // Dependent-load latency probe for Hopper (sm_90a). Not a port kernel:
-// chip_smoke.py uses it to put a number on K2's bound, a chain of T steps
-// of which each waits for one round trip to L1 or L2 for a colour.
+// chip_smoke.py uses it to put a number on K2's depth bound: the longest
+// chain of entries each waiting for the colour of the one before, each link
+// at least one round trip to L2.
 //
 // One thread follows a pointer chain p = next[p] for `steps` loads, each
 // address depending on the load before it, so the time per step is one

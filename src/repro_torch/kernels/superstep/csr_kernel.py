@@ -10,8 +10,10 @@ kernel has here:
   tensors and takes the plain version for CPU tensors — nothing else
   decides the path, and a CUDA tensor never reaches the plain version;
 * a plain PyTorch version (``superstep_csr_ref``, ``serial_tail_csr_ref``,
-  ``serial_tail_rows_ref``) that repeats the kernel's arithmetic on CPU
-  tensors;
+  ``serial_tail_rows_ref``) on CPU tensors.  K1's repeats the kernel's
+  arithmetic; K2's is the sequential walk that defines the function, which
+  the kernel computes in dependency order, every entry at once (its rank
+  table comes from ``tail_ranks``, which runs on either device);
 * a launch counter, ``superstep_csr.launches`` and
   ``serial_tail_csr.launches``, raised by one where the kernel is launched
   and nowhere else.
@@ -31,7 +33,7 @@ from repro_torch.core.firstfit import firstfit_bitset
 from repro_torch.core.heuristics import HEURISTICS, conflict_lose_lanes
 from repro_torch.ingest import PACKED_GATHER_MAX_DEG
 from repro_torch.kernels import build
-from repro_torch.kernels.cuda import MAX_SMEM, check, on_cpu, stream
+from repro_torch.kernels.cuda import check, check_bitset_width, on_cpu, stream
 
 __all__ = [
     "serial_tail_csr",
@@ -40,6 +42,7 @@ __all__ = [
     "serial_tail_rows_ref",
     "superstep_csr",
     "superstep_csr_ref",
+    "tail_ranks",
 ]
 
 _LIB = "superstep_csr"
@@ -52,7 +55,7 @@ def _lib() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.repro_superstep_csr.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
     lib.repro_superstep_csr.restype = i32
-    lib.repro_serial_tail_csr.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
+    lib.repro_serial_tail_csr.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
     lib.repro_serial_tail_csr.restype = i32
     return lib
 
@@ -141,7 +144,7 @@ superstep_csr.launches = 0
 
 
 # --------------------------------------------------------------------------
-# K2: the serial tail, one block walking the worklist in order
+# K2: the serial tail, every entry at once in dependency order
 # --------------------------------------------------------------------------
 # K2 reads, for the i-th worklist entry, the row ``col[starts[i] :
 # starts[i] + min(degs[i], W)]``.  ``serial_tail_csr`` takes those from the
@@ -149,6 +152,16 @@ superstep_csr.launches = 0
 # given, for rows laid out by the caller (the composed two-hop rows of
 # ``repro_torch.d2``).  Both launch the one kernel and count into
 # ``serial_tail_csr.launches``.
+#
+# The function is sequential greedy in worklist order; the kernel computes
+# it as Jones-Plassmann with the position as priority (the header of
+# ``csrc/superstep_csr.cu`` gives the read rule and why it cannot
+# deadlock).  Precondition: the worklist's real ids (``< n``) are distinct,
+# as every caller's compacted worklist is.
+
+# rows up to this width take one thread per entry, wider ones a warp
+THREAD_ROW_MAX = 32
+
 
 def serial_tail_rows_ref(starts, degs, col, colors_ext, wl, W: int):
     """Plain version of K2 on CPU tensors; updates ``colors_ext`` in place.
@@ -187,12 +200,43 @@ def serial_tail_csr_ref(row_starts, col_padded, deg_ext, colors_ext, wl, W: int)
                                 colors_ext, wl, W)
 
 
+def tail_ranks(wl, n: int) -> torch.Tensor:
+    """K2's ``rank`` table: ``(n + 1,)`` int32 on ``wl``'s device.
+
+    ``rank[wl[i]] = i`` for each real id ``wl[i] < n``; ``-1`` for every
+    vertex outside the worklist and for the sentinel slot ``n``.
+    """
+    rank = torch.full((n + 1,), -1, dtype=torch.int32, device=wl.device)
+    rank[wl.long()] = torch.arange(wl.shape[0], dtype=torch.int32, device=wl.device)
+    rank[n] = -1  # sentinel entries all landed here
+    return rank
+
+
+def _launch_tail(starts, degs, col, colors_ext, wl, W: int, per_thread: bool):
+    """One K2 launch on the card in the given layout (``serial_tail_rows``
+    picks it from ``W``): clears the worklist's colors, builds ``rank`` and
+    a zeroed ticket counter, and launches."""
+    n = colors_ext.shape[0] - 1
+    rank = tail_ranks(wl, n)
+    colors_ext.index_fill_(0, wl.long(), 0)  # sentinel entries clear slot n
+    ticket = torch.zeros((1,), dtype=torch.int32, device=wl.device)
+    lib = _lib()
+    rc = lib.repro_serial_tail_csr(
+        wl.data_ptr(), starts.data_ptr(), degs.data_ptr(), col.data_ptr(),
+        rank.data_ptr(), colors_ext.data_ptr(), ticket.data_ptr(),
+        wl.shape[0], int(W), n, int(per_thread), stream(wl.device))
+    serial_tail_csr.launches += 1
+    check(lib, rc, "serial_tail_csr")
+    return colors_ext
+
+
 def serial_tail_rows(starts, degs, col, colors_ext, wl, W: int):
     """The serial tail as one K2 launch over rows given per worklist entry.
 
-    Entry i of ``wl`` (``order_tail`` order) reads ``col[starts[i] :
-    starts[i] + min(degs[i], W)]``; ``W`` bounds every row.  Updates
-    ``colors_ext`` (``n + 1`` slots, slot ``n`` = 0) in place and returns it.
+    Entry i of ``wl`` (``order_tail`` order; real ids distinct) reads
+    ``col[starts[i] : starts[i] + min(degs[i], W)]``; ``W`` bounds every
+    row.  Updates ``colors_ext`` (``n + 1`` slots, slot ``n`` = 0) in place
+    and returns it.
     """
     n = colors_ext.shape[0] - 1
     T = wl.shape[0]
@@ -203,15 +247,9 @@ def serial_tail_rows(starts, degs, col, colors_ext, wl, W: int):
         return colors_ext
     if cpu:
         return serial_tail_rows_ref(starts, degs, col, colors_ext, wl, W)
-    if (int(W) + 32) // 32 * 4 > MAX_SMEM:
-        raise ValueError(f"tail width W={W} needs more shared memory than a block has")
-    lib = _lib()
-    rc = lib.repro_serial_tail_csr(
-        wl.data_ptr(), starts.data_ptr(), degs.data_ptr(), col.data_ptr(),
-        colors_ext.data_ptr(), T, int(W), n, stream(wl.device))
-    serial_tail_csr.launches += 1
-    check(lib, rc, "serial_tail_csr")
-    return colors_ext
+    check_bitset_width(W)
+    return _launch_tail(starts, degs, col, colors_ext, wl, W,
+                        per_thread=int(W) <= THREAD_ROW_MAX)
 
 
 def serial_tail_csr(row_starts, col_padded, deg_ext, colors_ext, wl, W: int):
@@ -231,7 +269,6 @@ def serial_tail_csr(row_starts, col_padded, deg_ext, colors_ext, wl, W: int):
     if colors_ext.shape[0] != n + 1:
         raise ValueError(
             f"colors_ext has {colors_ext.shape[0]} slots, expected n + 1 = {n + 1}")
-    # read ahead by the kernel: neither depends on the colors
     starts = row_starts[wl.clamp(0, max(n - 1, 0))]
     degs = deg_ext[wl.clamp(0, n)]
     return serial_tail_rows(starts, degs, col_padded, colors_ext, wl, W)

@@ -37,8 +37,11 @@ from repro_torch.kernels.conflict.kernel import conflict_tile, conflict_tile_ref
 from repro_torch.kernels.d2.kernel import d2_firstfit, d2_firstfit_ref
 from repro_torch.kernels.firstfit.kernel import firstfit_tile, firstfit_tile_ref
 from repro_torch.kernels.superstep.csr_kernel import (
+    _launch_tail,
     serial_tail_csr,
     serial_tail_csr_ref,
+    serial_tail_rows,
+    serial_tail_rows_ref,
     superstep_csr,
     superstep_csr_ref,
 )
@@ -327,6 +330,48 @@ def test_cuda_k2_matches_plain(cuda_device, zero_counts):
     got = serial_tail_csr(gpu.row_starts, gpu.col_padded, gpu.deg_ext,
                           colors.to(cuda_device), tail.to(cuda_device),
                           dev.max_width)
+    assert serial_tail_csr.launches == 1
+    assert torch.equal(want, got.cpu())
+
+
+def _tail_rows(W, seed=12, n=3000, T=1200):
+    """Rows laid out by hand for K2: random ids (earlier and later entries,
+    outside vertices, so rows are not symmetric), self, duplicate and
+    sentinel lanes, sentinel entries, outside colours up to 60."""
+    rng = np.random.default_rng(seed)
+    ids = rng.choice(n, T - 6, replace=False)
+    wl = np.insert(ids, rng.integers(0, T - 6, 6), n).astype(np.int32)
+    degs = rng.integers(0, W + 1, T).astype(np.int32)
+    starts = np.concatenate([[0], np.cumsum(degs[:-1])]).astype(np.int32)
+    col = rng.integers(0, n + 1, int(degs.sum()) + W).astype(np.int32)
+    for i in range(T):
+        row = col[starts[i]: starts[i] + degs[i]]
+        lanes = rng.random(row.shape[0])
+        row[lanes < 0.1] = wl[i]
+        if row.shape[0]:
+            row[(lanes >= 0.1) & (lanes < 0.2)] = row[0]
+    colors = rng.integers(0, 61, n + 1).astype(np.int32)
+    colors[n] = 0
+    return tuple(torch.from_numpy(a) for a in (starts, degs, col, colors, wl))
+
+
+def test_serial_tail_rows_takes_its_plain_version_on_cpu(zero_counts):
+    starts, degs, col, colors, wl = _tail_rows(20)
+    want = serial_tail_rows_ref(starts, degs, col, colors.clone(), wl, 20)
+    got = colors.clone()
+    assert serial_tail_rows(starts, degs, col, got, wl, 20) is got
+    assert torch.equal(got, want)
+    assert serial_tail_csr.launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 20, 32, 33, 100])
+@pytest.mark.parametrize("per_thread", [True, False], ids=["thread", "warp"])
+def test_cuda_k2_layouts_match_plain(cuda_device, zero_counts, W, per_thread):
+    args = _tail_rows(W)
+    want = serial_tail_rows_ref(*args[:3], args[3].clone(), args[4], W)
+    gpu = [a.to(cuda_device) for a in args]
+    got = _launch_tail(*gpu, W, per_thread)
     assert serial_tail_csr.launches == 1
     assert torch.equal(want, got.cpu())
 
