@@ -20,14 +20,20 @@ Phases, in order; any failure ends the run with a non-zero exit code:
              ``grid2d(300, 300)`` in ``order_tail`` order, rows laid out by
              hand (asymmetric, self, duplicate and sentinel lanes, colours
              past 32) and composed two-hop rows at W = 702.
-5. K3-K5   — the gathered-tile kernels against their plain versions, bit
-             for bit: widths 1..4096, both heuristics, sentinel rows, rows
-             whose colours 1..32 are all taken.
+5. K3-K5   — K3 over gathered tiles, and K4 and K5 over each of their
+             lane sources (a column-sliced table read by id up to each
+             degree, a gathered id tile with self, duplicate and sentinel
+             lanes, gathered tiles) in each layout (1, 4, 8, 16, 32 lanes a
+             row), against their plain versions, bit for bit: widths
+             1..4096, both heuristics, sentinel rows, rows whose colours
+             1..32 are all taken.
 6. K6      — the two-tile distance-2 FirstFit against its plain version,
              bit for bit: W1 in 1..33, W2 in 1..4096, w in 1, 37, 1000,
              random rows and rows holding every colour 1..W1+W2.
 7. latency — a dependent-load chain (``csrc/latency_probe.cu``) times one
-             L1 hit and one L2 hit: K2's depth bound is depth L2 hits.
+             L1 hit and one L2 hit: K2's depth bound is depth L2 hits; and
+             the rate of random 4-byte reads from a table held in L2, what
+             K4's and K5's colour and degree reads are.
 8. slice   — every SUITE graph at scale 0.25 through ``color`` on the card
              and on the CPU: every ``ColoringResult`` field equal; then the
              classic, padded, chunked and fused options on rmat-er, rmat-g
@@ -50,7 +56,13 @@ Phases, in order; any failure ends the run with a non-zero exit code:
              paths' shapes (each kernel held against its plain version
              there; K2 also in each layout, with its tail's dependency
              depth, computed on the host, and the bound max(bytes, depth x
-             L2)), peak memory, a profiler line.
+             L2)), peak memory, a profiler line.  The classic engine's
+             counted runs go with ``gather_rows`` made to raise (its K4
+             and K5 read rows in place); K4 and K5 are timed at its first
+             step on each graph and at thermal2's step 101, through the
+             wrapper and in each layout forced, beside their bound, the
+             old path (gathered tiles, then the kernel) and the gathers at
+             the probe's rate.
 10. full distance-2 — ``distance2`` on rmat-er and thermal2 (``auto``
              composes the two hops on the fly: K3, K2 over composed rows),
              ``distance2`` precomputed on thermal2 (K1 over G², K2; the
@@ -62,13 +74,15 @@ Phases, in order; any failure ends the run with a non-zero exit code:
              first-step shapes and the composed-row tails of rmat-er (W =
              702), thermal2 (W = 72) and the banded Jacobian (W = 49, a
              chain as deep as the tail), each layout, against their bounds
-             and plain versions.
+             and plain versions; K5 over ``d2_sgr_step``'s first-step
+             composed rows (W = 702), each layout.
 
 The line before the last is the kernels' JSON record, and the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import statistics
@@ -76,16 +90,19 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+import repro_torch.core.coloring as core_coloring  # noqa: E402
 from repro_torch import color  # noqa: E402
 from repro_torch.core.coloring import (  # noqa: E402
     ColoringResult,
     DenseRows,
+    sgr_step,
     TAIL_SEGMENT_CELLS,
     _composed_tail,
     _resolve_classes,
@@ -93,7 +110,7 @@ from repro_torch.core.coloring import (  # noqa: E402
     order_tail,
     run_workefficient_loop,
 )
-from repro_torch.core.csr import DeviceCSR, csr_from_edges  # noqa: E402
+from repro_torch.core.csr import DeviceCSR, csr_from_edges, next_pow2  # noqa: E402
 from repro_torch.core.serial import greedy_serial  # noqa: E402
 from repro_torch.core.validate import is_valid_coloring  # noqa: E402
 from repro_torch.d2 import (  # noqa: E402
@@ -119,12 +136,16 @@ from repro_torch.graphs import (  # noqa: E402
 )
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.conflict.kernel import (  # noqa: E402
+    conflict_rows,
+    conflict_rows_ref,
     conflict_tile,
     conflict_tile_ref,
 )
-from repro_torch.kernels.cuda import check, stream  # noqa: E402
+from repro_torch.kernels.cuda import ROW_LANES, check, row_lanes, stream  # noqa: E402
 from repro_torch.kernels.d2.kernel import d2_firstfit, d2_firstfit_ref  # noqa: E402
 from repro_torch.kernels.firstfit.kernel import (  # noqa: E402
+    firstfit_rows,
+    firstfit_rows_ref,
     firstfit_tile,
     firstfit_tile_ref,
 )
@@ -147,7 +168,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA's data sheet
 RESULT_FIELDS = ("iterations", "work_items", "padded_work", "class_cells",
                  "converged")
 KERNELS = (superstep_csr, serial_tail_csr, superstep_tile, firstfit_tile,
-           conflict_tile, d2_firstfit)
+           conflict_tile, d2_firstfit, firstfit_rows, conflict_rows)
 HEURISTICS = ("id", "degree")
 
 
@@ -486,7 +507,52 @@ def tile_case(rng, W: int, w: int, n: int, mode: str):
     return ids, nid, my_c, nc, my_d, nd
 
 
+def row_case(rng, W: int, w: int, mode: str):
+    """``(table, deg_ext, colors_ext, ids, rows)`` int32 arrays for the
+    row-resident K4 and K5.
+
+    ``table`` is ``(n, W + 3)``, to be sliced to its first W columns (stride
+    W + 3 != W): row v holds ``deg_ext[v]`` random neighbour ids, the
+    sentinel ``n`` in the rest of the slice and junk past it. ``rows`` is a
+    ``(w, W)`` id tile with self, duplicate and sentinel lanes. ``ids``
+    holds seven sentinel entries. Colours by ``mode`` as ``tile_case``; in
+    ``full`` half the rows of both sources hold a pool of W vertices
+    coloured 1..W, one each (answer W + 1 through the shared-bitset path
+    for W >= 32, or a colour the row's vertex holds and loses).
+    """
+    n = max(2 * w, 1000, 2 * W + 8)
+    hi = {"random": W + 1, "low": min(W + 1, 40), "full": W + 1}[mode]
+    colors = rng.integers(0, hi + 1, n + 1).astype(np.int32)
+    deg = rng.integers(0, W + 1, n + 1).astype(np.int32)
+    deg[rng.random(n + 1) < 0.2] = W
+    table = rng.integers(0, n, (n, W + 3)).astype(np.int32)
+    table[:, :W][np.arange(W)[None, :] >= deg[:n, None]] = n
+    ids = rng.integers(0, n, w).astype(np.int32)
+    ids[rng.choice(w, 7, replace=False)] = n
+    rows = rng.integers(0, n + 1, (w, W)).astype(np.int32)
+    lanes = rng.random((w, W))
+    rows[lanes < 0.05] = np.broadcast_to(ids[:, None], (w, W))[lanes < 0.05]
+    rows[(lanes >= 0.05) & (lanes < 0.1)] = np.broadcast_to(
+        rows[:, :1], (w, W))[(lanes >= 0.05) & (lanes < 0.1)]
+    rows[(lanes >= 0.1) & (lanes < 0.13)] = n
+    if mode == "full":
+        pool = rng.choice(n, W, replace=False)
+        colors[pool] = np.arange(1, W + 1)
+        for i in range(w // 2):
+            rows[i] = rng.permutation(pool)
+            if ids[i] < n:
+                deg[ids[i]] = W
+                table[ids[i], :W] = rng.permutation(pool)
+    colors[n] = 0
+    deg[n] = 0
+    return table, deg, colors, ids, rows
+
+
 def check_tiles(dev_cuda):
+    """K3 over gathered tiles, and K4 and K5 over all three of their lane
+    sources (a table by id, read to each degree; a gathered id tile; the
+    gathered tiles of K3) in each layout, against their plain versions, bit
+    for bit."""
     rng = np.random.default_rng(17)
     cases = {"K3": 0, "K4": 0, "K5": 0}
     widths = (1, 2, 8, 16, 26, 31, 32, 33, 63, 64, 100, 376, 1000, 4096)
@@ -495,22 +561,47 @@ def check_tiles(dev_cuda):
         for mode in ("random", "low", "full"):
             cpu = [torch.from_numpy(a) for a in tile_case(rng, W, w, 100_000, mode)]
             gpu = [a.to(dev_cuda) for a in cpu]
-            got = firstfit_tile(gpu[3]).cpu()
-            if not torch.equal(firstfit_tile_ref(cpu[3]), got):
-                fail(f"K4 differs from its plain version: W={W} {mode} w={w}")
-            cases["K4"] += 1
+            table, deg, colors, ids, rows = (torch.from_numpy(a) for a in
+                                             row_case(rng, W, min(w, 1000), mode))
+            table_g, deg_g, colors_g, ids_g, rows_g = (
+                a.to(dev_cuda) for a in (table, deg, colors, ids, rows))
+            k4 = {"tile": (firstfit_tile_ref(cpu[3]),
+                           lambda k: firstfit_tile(gpu[3], lanes=k)),
+                  "table": (firstfit_rows_ref(colors, ids, table=table[:, :W]),
+                            lambda k: firstfit_rows(colors_g, ids_g, table=table_g[:, :W],
+                                                    deg_ext=deg_g, lanes=k)),
+                  "rows": (firstfit_rows_ref(colors, ids, rows=rows),
+                           lambda k: firstfit_rows(colors_g, ids_g, rows=rows_g, lanes=k))}
+            k5 = {}
             for h in HEURISTICS:
-                if not torch.equal(conflict_tile_ref(*cpu, h),
-                                   conflict_tile(*gpu, h).cpu()):
-                    fail(f"K5 differs from its plain version: W={W} {mode} {h}")
-                cases["K5"] += 1
+                k5[h, "tile"] = (conflict_tile_ref(*cpu, h),
+                                 lambda k, h=h: conflict_tile(*gpu, h, lanes=k))
+                k5[h, "table"] = (
+                    conflict_rows_ref(colors, deg, ids, h, table=table[:, :W]),
+                    lambda k, h=h: conflict_rows(colors_g, deg_g, ids_g, h,
+                                                 table=table_g[:, :W], lanes=k))
+                k5[h, "rows"] = (
+                    conflict_rows_ref(colors, deg, ids, h, rows=rows),
+                    lambda k, h=h: conflict_rows(colors_g, deg_g, ids_g, h, rows=rows_g,
+                                                 lanes=k))
+            for name, runs in (("K4", k4), ("K5", k5)):
+                for label, (want, run) in runs.items():
+                    for lanes in ROW_LANES:
+                        if not torch.equal(want, run(lanes).cpu()):
+                            fail(f"{name} differs from its plain version: W={W} {mode} "
+                                 f"{label} lanes={lanes}")
+                        cases[name] += 1
+            for h in HEURISTICS:
                 want = superstep_tile_ref(*cpu, h)
                 got = superstep_tile(*gpu, h)
                 if not all(torch.equal(a, b.cpu()) for a, b in zip(want, got)):
                     fail(f"K3 differs from its plain version: W={W} {mode} {h}")
                 cases["K3"] += 1
     print(f"K3, K4, K5 == plain on {cases} cases (W in {widths}; random, low "
-          "and full rows; both heuristics; sentinel rows)", flush=True)
+          "and full rows; both heuristics; sentinel rows; K4 and K5 over a "
+          "column-sliced table read to each degree, a gathered id tile with "
+          f"self, duplicate and sentinel lanes, and gathered tiles, in each "
+          f"layout of {ROW_LANES} lanes a row)", flush=True)
 
 
 def d2_tiles(rng, w: int, W1: int, W2: int, mode: str):
@@ -577,11 +668,38 @@ def chase_ns(dev_cuda, nwords: int, level: int, steps: int) -> float:
     return ms * 1e6 / steps
 
 
+def gather_rate(dev_cuda, log2: int, level: int, reads: int = 512) -> float:
+    """Random 4-byte reads a second from a 2^log2-word table, every thread
+    of a full grid reading ``reads`` words (``csrc/latency_probe.cu``),
+    through the read-only path (``level`` 1) or L2 only (2), after a warm
+    pass."""
+    lib = build.load("latency_probe")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.repro_gather.argtypes = [ptr, i32, i32, i32, i32, ptr, ptr]
+    lib.repro_gather.restype = i32
+    table = torch.ones(1 << log2, dtype=torch.int32, device=dev_cuda)
+    out = torch.zeros(1, dtype=torch.int32, device=dev_cuda)
+    blocks = 8 * torch.cuda.get_device_properties(dev_cuda).multi_processor_count
+
+    def run():
+        check(lib, lib.repro_gather(table.data_ptr(), log2, reads, level, blocks,
+                                    out.data_ptr(), stream(dev_cuda)), "gather")
+
+    ms = event_ms(run, reps=5, warm=2)
+    return blocks * 256 * reads / (ms / 1e3)
+
+
 def check_latency(dev_cuda) -> dict:
     lat = {"l1_ns": chase_ns(dev_cuda, 2048, 1, 200_000),
-           "l2_ns": chase_ns(dev_cuda, 1 << 21, 2, 200_000)}
+           "l2_ns": chase_ns(dev_cuda, 1 << 21, 2, 200_000),
+           "gather_per_s": gather_rate(dev_cuda, 20, 1),
+           "gather_l2_per_s": gather_rate(dev_cuda, 20, 2),
+           "gather_16mb_per_s": gather_rate(dev_cuda, 22, 1)}
     print(f"dependent-load latency: L1 hit {lat['l1_ns']:.1f} ns (8 KB chain), "
           f"L2 hit {lat['l2_ns']:.1f} ns (8 MB chain, L1 bypassed)", flush=True)
+    print(f"random 4-byte gathers: {lat['gather_per_s'] / 1e9:.1f} G/s from a 4 MB table "
+          f"through the read-only path ({lat['gather_l2_per_s'] / 1e9:.1f} G/s L2 only; "
+          f"{lat['gather_16mb_per_s'] / 1e9:.1f} G/s from 16 MB)", flush=True)
     return lat
 
 
@@ -711,8 +829,8 @@ def check_d2_slice(dev_cuda):
               f"include_first_hop={include_first_hop}: {a.iterations} steps, "
               f"{a.num_colors} colors, card == cpu", flush=True)
     counts = {k.__name__: k.launches for k in KERNELS}
-    for k in (superstep_csr, serial_tail_csr, superstep_tile, firstfit_tile,
-              conflict_tile, d2_firstfit):
+    for k in (superstep_csr, serial_tail_csr, superstep_tile, firstfit_rows,
+              conflict_rows, d2_firstfit):
         if counts[k.__name__] == 0:
             fail(f"d2 slice: kernel {k.__name__} was not launched")
     print(f"d2 slice launches: {counts}", flush=True)
@@ -731,9 +849,12 @@ FULL = {
     "kkt_power": lambda: build_graph("kkt_power", 4.0),
 }
 # (label, graph, options, the kernels this path must launch)
+# the classic step on thermal2 timed mid-cascade: the one after the first
+# 100 (of 1,755)
+CLASSIC_MID_STEP = 101
 FULL_RUNS = [
     *((f"ragged {g}", g, {}, (superstep_csr, serial_tail_csr)) for g in PAPER),
-    *((f"classic {g}", g, dict(engine="classic"), (firstfit_tile, conflict_tile))
+    *((f"classic {g}", g, dict(engine="classic"), (firstfit_rows, conflict_rows))
       for g in PAPER),
     *((f"padded {g}", g, dict(engine="padded"), (superstep_tile, serial_tail_csr))
       for g in PAPER),
@@ -874,35 +995,157 @@ def k3_times(provider, deg_ext, classes, widths, dev_cuda, plain: bool) -> list:
     return out
 
 
-def k4_k5_times(g, dev_cuda, plain: bool) -> dict:
-    """K4 and K5 at the classic engine's first step: every vertex in one
-    class over the dense table (w = n, W = Δmax).  K4 FirstFits against the
-    all-zero start; K5 then tests the all-ones colouring it produced."""
+def row_bounds(dense, deg_ext, colors4, colors5, ids) -> dict:
+    """Least time for K4 and K5 over source (a) at these inputs: each word
+    they need read once and each output written once, over HBM's rate.
+
+    K4: the ids, the table lanes up to each degree, the colour of each
+    distinct neighbour on them, the outputs. K5 (degree rule): the ids,
+    their colours and degrees, the lanes of rows of nonzero colour (a row
+    of colour 0 cannot lose), the colour of each distinct neighbour on them
+    and the degree of each distinct neighbour on a lane that holds its
+    row's colour, the outputs. Counted on the card from the gathered rows.
+    """
+    n, W = dense.shape
+    w = int(ids.shape[0])
+    rows = gather_rows(dense, ids)
+    length = torch.where(ids < n, deg_ext[ids.clamp(max=n).long()].clamp(max=W), 0)
+    read = torch.arange(W, device=ids.device)[None, :] < length[:, None]
+    my_c = colors5[ids.long()]
+    read5 = read & (my_c > 0)[:, None]
+    match = read5 & (colors5[rows.long()] == my_c[:, None])
+    words = {"lanes": int(read.sum()), "colours": int(torch.unique(rows[read]).numel()),
+             "lanes5": int(read5.sum()), "colours5": int(torch.unique(rows[read5]).numel()),
+             "match5": int(match.sum()), "degrees5": int(torch.unique(rows[match]).numel())}
+    k4 = 2 * w + words["lanes"] + words["colours"]
+    k5 = 4 * w + words["lanes5"] + words["colours5"] + words["degrees5"]
+    return {"K4": 4 * k4 / HBM_BYTES_PER_S * 1e3, "K5": 4 * k5 / HBM_BYTES_PER_S * 1e3,
+            "words": words}
+
+
+def k45_at(dense, deg_ext, colors4, colors5, ids, dense_cpu, plain_rows: int,
+           gather_per_s: float) -> dict:
+    """K4 at ``colors4`` and K5 (degree rule) at ``colors5`` over the rows
+    ``ids`` of the table ``dense`` (source (a)), as the classic engine
+    launches them: CUDA-event times through the wrappers and in each layout
+    forced (all must agree), the bound (``row_bounds``) beside the old tile
+    bound, the old path at the same inputs (``gather_rows`` and the colour
+    and degree gathers, then the kernel over the gathered tiles in the warp
+    layout, one warp a row as the tile kernel had it) with its kernel alone,
+    the plain versions' CPU time on the first ``plain_rows`` rows and a
+    bit-for-bit check there. ``gather_ms`` is the time the lanes' random
+    colour reads (and K5's degree reads on matching lanes) take at the
+    probe's random-gather rate ``gather_per_s``, each a read of its own."""
+    n, W = dense.shape
+    w = int(ids.shape[0])
+    idx = ids.long()
+
+    def k4(lanes=None):
+        return firstfit_rows(colors4, ids, table=dense, deg_ext=deg_ext, lanes=lanes)
+
+    def k5(lanes=None):
+        return conflict_rows(colors5, deg_ext, ids, "degree", table=dense, lanes=lanes)
+
+    def tile4():
+        return firstfit_tile(colors4[gather_rows(dense, ids).long()], lanes=32)
+
+    def tile5():
+        rows = gather_rows(dense, ids)
+        idx, ridx = ids.long(), rows.long()
+        return conflict_tile(ids, rows, colors5[idx], colors5[ridx], deg_ext[idx],
+                             deg_ext[ridx], "degree", lanes=32)
+
+    bounds = row_bounds(dense, deg_ext, colors4, colors5, ids)
+    rec = {}
+    k = min(w, plain_rows)
+    plain = {"K4": lambda: firstfit_rows_ref(colors4.cpu(), ids[:k].cpu(), table=dense_cpu),
+             "K5": lambda: conflict_rows_ref(colors5.cpu(), deg_ext.cpu(), ids[:k].cpu(),
+                                             "degree", table=dense_cpu)}
+    for name, run, tile in (("K4", k4, tile4), ("K5", k5, tile5)):
+        want = run()
+        gathers = (bounds["words"]["lanes"] if name == "K4" else
+                   bounds["words"]["lanes5"] + bounds["words"]["match5"])
+        r = {"W": W, "w": w, "lanes": row_lanes(W), "bound_ms": bounds[name],
+             "gather_ms": gathers / gather_per_s * 1e3,
+             "tile_bound_ms": (tile_bound_ms(w, W) if name == "K4" else
+                               tile_bound_ms(w, W, int(bounds["words"]["lanes5"]))),
+             "ms": event_ms(run, reps=10, warm=2)}
+        for lanes in ROW_LANES:
+            r[f"lanes{lanes}_ms"] = event_ms(lambda: run(lanes), reps=10, warm=1)
+            if not torch.equal(run(lanes), want):
+                fail(f"{name} lanes={lanes} differs from the default layout at w={w}, W={W}")
+        if not torch.equal(tile(), want):
+            fail(f"{name} differs from the tile kernel over gathered tiles at w={w}, W={W}")
+        r["tile_ms"] = event_ms(tile, reps=10, warm=1)
+        r["plain_ms"], r["max_abs_err"] = plain_check(name, plain[name], want[:k], (k, W))
+        r["plain_rows"] = k
+        rec[name] = r
+    rows = gather_rows(dense, ids)
+    nc = colors4[rows.long()]
+    rec["K4"]["tile_kernel_ms"] = event_ms(lambda: firstfit_tile(nc, lanes=32), reps=10)
+    ridx = rows.long()
+    args = (ids, rows, colors5[idx], colors5[ridx], deg_ext[idx], deg_ext[ridx])
+    rec["K5"]["tile_kernel_ms"] = event_ms(
+        lambda: conflict_tile(*args, "degree", lanes=32), reps=10)
+    rec["words"] = bounds["words"]
+    return rec
+
+
+def classic_state(dense, deg_ext, steps: int):
+    """The classic engine's state after ``steps`` steps of one full-width
+    class from the all-zero start (``_color_classic``'s loop): the colours
+    and the next step's worklist slice."""
+    n = dense.shape[0]
+    colors = torch.zeros(n + 1, dtype=torch.int32, device=dense.device)
+    wl = torch.arange(n, dtype=torch.int32, device=dense.device)
+    count = n
+    for _ in range(steps):
+        cap = min(next_pow2(count), wl.shape[0])
+        colors, wl, cnt = sgr_step(dense, deg_ext, colors, wl[:cap])
+        count = int(cnt)
+    return colors, wl[:min(next_pow2(count), wl.shape[0])], count
+
+
+def k4_k5_times(g, dev_cuda, lat: dict, plain_rows: int,
+                mid_step: int | None = None) -> dict:
+    """K4 and K5 as the classic engine launches them (``k45_at``): at its
+    first step, every vertex in one class over the dense table (w = n, W =
+    Δmax; K4 FirstFits against the all-zero start, K5 then tests the
+    all-ones colouring it produced), and with ``mid_step`` at that step of
+    the cascade, replayed from the state the steps before it leave."""
     dense = torch.from_numpy(g.padded_adjacency()).to(dev_cuda)
+    dense_cpu = dense.cpu()
     deg_ext = torch.from_numpy(
         np.concatenate([g.degrees, [0]]).astype(np.int32)).to(dev_cuda)
-    n, W = dense.shape
+    n = g.n
     ids = torch.arange(n, dtype=torch.int32, device=dev_cuda)
     zeros = torch.zeros((n + 1,), dtype=torch.int32, device=dev_cuda)
     ones = torch.ones_like(zeros)
     ones[n] = 0
-    rows = dense.long()
-    nc0 = zeros[rows]
-    k5_args = (ids, dense, ones[:n], ones[rows], deg_ext[:n], deg_ext[rows])
-    rec = {
-        "K4": {"W": W, "w": n, "bound_ms": tile_bound_ms(n, W),
-               "ms": event_ms(lambda: firstfit_tile(nc0), reps=10, warm=2)},
-        "K5": {"W": W, "w": n,
-               "bound_ms": tile_bound_ms(n, W, count_same_lanes(k5_args[2], k5_args[3])),
-               "ms": event_ms(lambda: conflict_tile(*k5_args), reps=10, warm=2)},
-    }
-    if plain:
-        rec["K4"]["plain_ms"], rec["K4"]["max_abs_err"] = plain_check(
-            "K4", lambda: firstfit_tile_ref(nc0.cpu()), firstfit_tile(nc0), (n, W))
-        cpu = [a.cpu() for a in k5_args]
-        rec["K5"]["plain_ms"], rec["K5"]["max_abs_err"] = plain_check(
-            "K5", lambda: conflict_tile_ref(*cpu), conflict_tile(*k5_args), (n, W))
-    return rec
+    rate = lat["gather_per_s"]
+    out = {"first": k45_at(dense, deg_ext, zeros, ones, ids, dense_cpu, plain_rows, rate)}
+    if mid_step:
+        colors, wl, count = classic_state(dense, deg_ext, mid_step - 1)
+        c = firstfit_rows(colors, wl, table=dense, deg_ext=deg_ext)
+        after = colors.clone()
+        after[wl.long()] = torch.where(wl < n, c, 0)
+        out["mid"] = k45_at(dense, deg_ext, colors, after, wl, dense_cpu, plain_rows, rate)
+        out["mid"]["step"], out["mid"]["live"] = mid_step, count
+    return out
+
+
+def print_k45(label: str, rec: dict):
+    for name in ("K4", "K5"):
+        r = rec[name]
+        layouts = " / ".join(f"{r[f'lanes{k}_ms']:.4f}" for k in ROW_LANES)
+        print(f"  {name} {label} W={r['W']} w={r['w']}: {r['ms']:.4f} ms (lanes "
+              f"{r['lanes']}; forced {'/'.join(map(str, ROW_LANES))}: {layouts}), bound "
+              f"{r['bound_ms']:.4f} ms (tile bound {r['tile_bound_ms']:.4f}; random "
+              f"gathers at the probe's rate {r['gather_ms']:.4f}); old path "
+              f"(gathers + tile kernel, warp layout) {r['tile_ms']:.4f} ms, its kernel "
+              f"{r['tile_kernel_ms']:.4f} ms; plain {r['plain_ms']:.1f} ms on the first "
+              f"{r['plain_rows']} rows", flush=True)
+    print(f"  words counted for the bounds: {rec['words']}", flush=True)
 
 
 def device_us(event) -> float:
@@ -932,23 +1175,33 @@ def profile_call(call):
         return
     print(f"  profiler: wall {wall:.3f} ms, device busy {busy:.3f} ms "
           f"({100 * busy / wall:.1f}%), top kernels:")
-    for key, ms, count in rows[:6]:
+    for key, ms, count in rows[:8]:
         print(f"    {ms:10.3f} ms  x{count:<5d} {key[:90]}")
 
 
-def run_full(label, call, kernels, valid, reps: int = 3, what: str = "") -> dict:
-    """One main path at full size: the counted run of ``call()``, then
-    ``reps`` timed runs (after the counted one, which warms up) and a
-    profiled one."""
+def no_tile_gathers():
+    """A context in which ``core.coloring.gather_rows`` raises: the classic
+    engine on the card reads its rows in place and gathers no tile."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the classic step gathered a (w, W) tile on the card")
+    return mock.patch.object(core_coloring, "gather_rows", refuse)
+
+
+def run_full(label, call, kernels, valid, reps: int = 3, what: str = "",
+             gathers: bool = True) -> dict:
+    """One main path at full size: the counted run of ``call()`` (with
+    ``gathers=False`` inside ``no_tile_gathers``), then ``reps`` timed runs
+    (after the counted one, which warms up) and a profiled one."""
     reset_counts()
-    r = call()  # the main path's counted run
+    with contextlib.nullcontext() if gathers else no_tile_gathers():
+        r = call()  # the main path's counted run
     counts = {k.__name__: k.launches for k in KERNELS}
     for k in kernels:
         if counts[k.__name__] == 0:
             fail(f"full {label}: kernel {k.__name__} was not launched on its path")
     if not valid(r.colors):
         fail(f"full {label}: coloring is not valid")
-    walls, peaks = [], []
+    walls, peaks, held = [], [], torch.cuda.memory_allocated()
     for _ in range(reps):
         torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
@@ -962,7 +1215,8 @@ def run_full(label, call, kernels, valid, reps: int = 3, what: str = "") -> dict
           f"converged={r.converged} class_cells={r.class_cells}", flush=True)
     print(f"  call: median {statistics.median(walls):.3f} ms of "
           f"{[round(w, 3) for w in walls]}, peak device memory "
-          f"{max(peaks) / 2**20:.1f} MiB, launches "
+          f"{max(peaks) / 2**20:.1f} MiB ({(max(peaks) - held) / 2**20:.1f} MiB above the "
+          f"{held / 2**20:.1f} MiB held before the call), launches "
           f"{ {k: c for k, c in counts.items() if c} }")
     profile_call(call)
     return {"result": r, "counts": counts}
@@ -988,7 +1242,8 @@ def check_full(dev_cuda, lat: dict) -> dict:
     for label, name, opts, kernels in FULL_RUNS:
         g = graphs[name]
         out = run_full(label, lambda: color(g, device=dev_cuda, **opts), kernels,
-                       lambda c: is_valid_coloring(g, c), what=str(opts))
+                       lambda c: is_valid_coloring(g, c), what=str(opts),
+                       gathers=not label.startswith("classic"))
         for k, c in out["counts"].items():
             totals[k] += c
         r = out["result"]
@@ -1012,9 +1267,13 @@ def check_full(dev_cuda, lat: dict) -> dict:
                   + (f", plain {k2['plain_ms']:.1f} ms" if "plain_ms" in k2 else ""),
                   flush=True)
         elif label.startswith("classic"):
-            times[label] = kt = k4_k5_times(g, dev_cuda, plain=plain)
-            print_tile_recs("K4", [kt["K4"]])
-            print_tile_recs("K5", [kt["K5"]])
+            times[label] = kt = k4_k5_times(
+                g, dev_cuda, lat, plain_rows=g.n if name == "rmat-er" else 65536,
+                mid_step=CLASSIC_MID_STEP if name == "thermal2" else None)
+            print_k45("classic first step", kt["first"])
+            if "mid" in kt:
+                print_k45(f"classic step {kt['mid']['step']} (live {kt['mid']['live']})",
+                          kt["mid"])
         elif label.startswith("padded") or name == "kkt_power":
             classes, widths = _resolve_classes(g.degrees, (), "auto")
             csr = DeviceCSR.from_csr(g, dev_cuda)
@@ -1078,6 +1337,73 @@ def k6_times(g, dev_cuda, plain_rows: int) -> dict:
     print(f"  K6 w={n} W1={W1} W2={W2}: {rec['ms']:.4f} ms (bound "
           f"{rec['bound_ms']:.4f} ms), plain {rec['plain_ms']:.1f} ms on the "
           f"first {plain_rows} rows", flush=True)
+    return rec
+
+
+def d2_k5_times(g, dev_cuda, lat: dict, plain_rows: int) -> dict:
+    """K5 (degree rule) over source (b) at ``d2_sgr_step``'s first step:
+    every vertex's composed hop-1 and hop-2 id rows (W = Δ + Δ², self,
+    duplicate and sentinel lanes included), after the first FirstFit gave
+    every vertex colour 1. CUDA-event times through the wrapper and in each
+    layout forced (all must agree), the byte bound (the ids, their colours
+    and degrees, every lane of the id rows, each distinct neighbour's colour
+    and the degree of each distinct neighbour on a matching lane, the
+    outputs), the random gathers at the probe's rate, the old path (the
+    colour and degree tiles gathered, then the kernel over them in the warp
+    layout), and the plain version's CPU time on the first ``plain_rows``
+    rows with a bit-for-bit check."""
+    n = g.n
+    adj = torch.from_numpy(g.padded_adjacency()).to(dev_cuda)
+    deg = torch.from_numpy(np.concatenate([g.degrees, [0]]).astype(np.int32)).to(dev_cuda)
+    ids = torch.arange(n, dtype=torch.int32, device=dev_cuda)
+    rows1 = gather_rows(adj, ids)
+    rows2 = gather_rows(adj, rows1.reshape(-1), sentinel=n).reshape(n, -1)
+    rows = torch.cat([rows1, rows2], dim=1)
+    del adj, rows1, rows2
+    W = int(rows.shape[1])
+    colors = torch.ones(n + 1, dtype=torch.int32, device=dev_cuda)
+    colors[n] = 0
+
+    def run(lanes=None):
+        return conflict_rows(colors, deg, ids, "degree", rows=rows, lanes=lanes)
+
+    want = run()
+    rec = {"W": W, "w": n, "lanes": row_lanes(W, bitset=False, full=True),
+           "ms": event_ms(run, reps=5, warm=1)}
+    for lanes in ROW_LANES:
+        rec[f"lanes{lanes}_ms"] = event_ms(lambda: run(lanes), reps=3, warm=1)
+        if not torch.equal(run(lanes), want):
+            fail(f"K5 lanes={lanes} differs from the default layout over composed rows")
+    ridx = rows.long()
+    match = colors[ridx] == 1
+    distinct = int(torch.unique(rows).numel()) - int((rows == n).any())
+    degrees = int(torch.unique(rows[match]).numel())
+    rec["bound_ms"] = 4 * (4 * n + n * W + distinct + degrees) / HBM_BYTES_PER_S * 1e3
+    rec["gather_ms"] = (n * W + int(match.sum())) / lat["gather_per_s"] * 1e3
+    del match
+
+    def tile():
+        idx, r = ids.long(), rows.long()
+        return conflict_tile(ids, rows, colors[idx], colors[r], deg[idx], deg[r], "degree",
+                             lanes=32)
+
+    del ridx
+    if not torch.equal(tile(), want):
+        fail("K5 over composed rows differs from the tile kernel over gathered tiles")
+    rec["tile_ms"] = event_ms(tile, reps=3, warm=1)
+    k = min(n, plain_rows)
+    rec["plain_ms"], rec["max_abs_err"] = plain_check(
+        "K5 (composed rows)", lambda: conflict_rows_ref(
+            colors.cpu(), deg.cpu(), ids[:k].cpu(), "degree", rows=rows[:k].cpu()),
+        want[:k], (k, W))
+    rec["plain_rows"] = k
+    layouts = " / ".join(f"{rec[f'lanes{k}_ms']:.4f}" for k in ROW_LANES)
+    print(f"  K5 d2_sgr_step first step, composed rows W={W} w={n}: {rec['ms']:.4f} ms "
+          f"(lanes {rec['lanes']}; forced {'/'.join(map(str, ROW_LANES))}: {layouts}), "
+          f"bound {rec['bound_ms']:.4f} ms (random gathers at the probe's rate "
+          f"{rec['gather_ms']:.4f}); old path (colour and degree tiles gathered + tile "
+          f"kernel, warp layout) {rec['tile_ms']:.4f} ms; plain {rec['plain_ms']:.1f} ms on "
+          f"the first {k} rows", flush=True)
     return rec
 
 
@@ -1215,12 +1541,14 @@ def check_d2_full(graphs: dict, dev_cuda, lat: dict) -> dict:
         torch.cuda.empty_cache()
     g = graphs["rmat-er"]
     out = run_full("d2_sgr_step rmat-er", lambda: d2_classic(g, dev_cuda),
-                   (d2_firstfit, conflict_tile), lambda c: validate_d2(g, c),
+                   (d2_firstfit, conflict_rows), lambda c: validate_d2(g, c),
                    what="(run_workefficient_loop, include_first_hop=True)")
     for k, c in out["counts"].items():
         totals[k] += c
     torch.cuda.empty_cache()
     times = {"k6": k6_times(g, dev_cuda, plain_rows=65536)}
+    torch.cuda.empty_cache()
+    times["k5 d2"] = d2_k5_times(g, dev_cuda, lat, plain_rows=65536)
     torch.cuda.empty_cache()
     times["k6 thermal2"] = k6_times(graphs["thermal2"], dev_cuda, plain_rows=65536)
     torch.cuda.empty_cache()
@@ -1245,12 +1573,12 @@ def kernels_record(full: dict) -> list:
     shapes on rmat-er (K1: mean per launch over the first superstep's
     classes; K2: the stall tail over all n vertices; K3: mean per launch
     over the padded engine's first-superstep classes; K4 and K5: the
-    classic engine's first step; K6: ``d2_sgr_step``'s FirstFit over all n
-    after one step)."""
+    classic engine's first step, rows read in place; K6: ``d2_sgr_step``'s
+    FirstFit over all n after one step)."""
     t = full["times"]
     k1, k2 = t["ragged rmat-er"]["k1"], t["ragged rmat-er"]["k2"]
     k3 = t["padded rmat-er"]
-    k4, k5 = t["classic rmat-er"]["K4"], t["classic rmat-er"]["K5"]
+    k4, k5 = t["classic rmat-er"]["first"]["K4"], t["classic rmat-er"]["first"]["K5"]
 
     def entry(name, source, replaces, recs):
         return {"name": name, "route": "cuda", "source": source,
@@ -1273,9 +1601,9 @@ def kernels_record(full: dict) -> list:
               "src/repro/kernels/superstep/csr_kernel.py:223", [k2]),
         entry("superstep_tile", tile_src,
               "src/repro/kernels/superstep/kernel.py:39", k3),
-        entry("firstfit_tile", tile_src,
+        entry("firstfit_rows", tile_src,
               "src/repro/kernels/firstfit/kernel.py:28", [k4]),
-        entry("conflict_tile", tile_src,
+        entry("conflict_rows", tile_src,
               "src/repro/kernels/conflict/kernel.py:23", [k5]),
         entry("d2_firstfit", d2_src, "src/repro/kernels/d2/kernel.py:44",
               [t["k6"]]),

@@ -48,7 +48,13 @@ import numpy as np
 import torch
 
 from repro_torch.api import register
-from repro_torch.core.csr import CSRGraph, DeviceCSR, auto_tile_thresholds, next_pow2
+from repro_torch.core.csr import (
+    CSRGraph,
+    DeviceCSR,
+    auto_tile_thresholds,
+    gather_rows,
+    next_pow2,
+)
 from repro_torch.core.firstfit import FF_FUNCS
 from repro_torch.core.heuristics import (
     HEURISTICS,
@@ -56,9 +62,9 @@ from repro_torch.core.heuristics import (
     conflict_lose_lanes,
 )
 from repro_torch.ingest import PACKED_GATHER_MAX_DEG, packed_gather_ok
-from repro_torch.kernels.conflict.kernel import conflict_tile
+from repro_torch.kernels.conflict.kernel import conflict_rows
 from repro_torch.kernels.dispatch import resolve_backend
-from repro_torch.kernels.firstfit.kernel import firstfit_tile
+from repro_torch.kernels.firstfit.kernel import firstfit_rows
 from repro_torch.kernels.superstep.csr_kernel import (
     serial_tail_csr,
     serial_tail_rows,
@@ -118,28 +124,22 @@ def _on_card(t: torch.Tensor) -> bool:
 # phase helpers
 # --------------------------------------------------------------------------
 
-def gather_rows(adj: torch.Tensor, ids: torch.Tensor, sentinel: int | None = None):
-    """Gather padded adjacency rows; sentinel ids yield all-sentinel rows.
-
-    Ids are clipped to ``n - 1`` before the gather, as JAX clamps it in
-    ``repro``, and rows of ids ``>= n`` read ``sentinel`` (default ``n``).
-    """
-    n = adj.shape[0]
-    fill = n if sentinel is None else sentinel
-    rows = adj[ids.clamp(0, max(n - 1, 0)).long()]
-    return torch.where((ids < n)[:, None], rows, fill)
-
-
-def ff_apply(adj, colors_ext, ids, kind: str, rows=None):
+def ff_apply(adj, colors_ext, ids, kind: str, rows=None, deg_ext=None):
     """FirstFit the worklist chunk ``ids`` and write colors (sentinel-safe).
 
-    On the card the FirstFit is one K4 launch; on the CPU it is
-    ``FF_FUNCS[kind]``.  Updates ``colors_ext`` in place.
+    On the card the FirstFit is one K4 launch reading ``adj``'s rows where
+    they lie (up to each degree in ``deg_ext`` when given), or the gathered
+    ``rows``; on the CPU it is ``FF_FUNCS[kind]`` over the gathered tile.
+    Every row reads the colours from before the chunk.  Updates
+    ``colors_ext`` in place.
     """
     n = adj.shape[0]
-    rows = gather_rows(adj, ids) if rows is None else rows
-    nc = colors_ext[rows.long()]
-    c = firstfit_tile(nc) if _on_card(ids) else FF_FUNCS[kind](nc)
+    if _on_card(ids):
+        c = (firstfit_rows(colors_ext, ids, table=adj, deg_ext=deg_ext)
+             if rows is None else firstfit_rows(colors_ext, ids, rows=rows))
+    else:
+        rows = gather_rows(adj, ids) if rows is None else rows
+        c = FF_FUNCS[kind](colors_ext[rows.long()])
     colors_ext[ids.long()] = torch.where(ids < n, c, 0).to(torch.int32)
     return colors_ext
 
@@ -147,13 +147,18 @@ def ff_apply(adj, colors_ext, ids, kind: str, rows=None):
 def cr_flags(adj, deg_ext, colors_ext, ids, heuristic: str, rows=None):
     """Conflict flags for the worklist chunk ``ids`` (True = loses, recolor).
 
-    On the card one K5 launch; on the CPU ``conflict_lose_flags``.
+    On the card one K5 launch reading ``adj``'s rows where they lie (up to
+    each degree), or the gathered ``rows``, with colours and degrees read in
+    place; on the CPU ``conflict_lose_flags`` over the gathered tiles.
     """
+    if _on_card(ids):
+        return (conflict_rows(colors_ext, deg_ext, ids, heuristic, table=adj)
+                if rows is None else
+                conflict_rows(colors_ext, deg_ext, ids, heuristic, rows=rows))
     rows = gather_rows(adj, ids) if rows is None else rows
     idx, ridx = ids.long(), rows.long()
-    args = (ids, rows, colors_ext[idx], colors_ext[ridx], deg_ext[idx],
-            deg_ext[ridx], heuristic)
-    return conflict_tile(*args) if _on_card(ids) else conflict_lose_flags(*args)
+    return conflict_lose_flags(ids, rows, colors_ext[idx], colors_ext[ridx],
+                               deg_ext[idx], deg_ext[ridx], heuristic)
 
 
 def compact(ids: torch.Tensor, flags: torch.Tensor, sentinel: int):
@@ -189,15 +194,21 @@ def sgr_step(adj, deg_ext, colors_ext, wl, *, heuristic: str = "degree",
     FirstFit in ``coarsen_ff`` chunks (later chunks see earlier chunks'
     colors), then ConflictResolve in ``coarsen_cr`` chunks, each clearing
     its losers before the next chunk reads; ``reuse_rows`` gathers the rows
-    once for both phases when neither is chunked.  Updates ``colors_ext``
-    in place; returns ``(colors_ext, new_wl, new_count)``.
+    once for both phases when neither is chunked.  On the card K4 and K5
+    read ``adj``'s rows where they lie, so nothing is gathered and
+    ``reuse_rows`` has nothing to reuse.  ``adj`` pads each row past its
+    degree in ``deg_ext`` with the sentinel, as ``padded_adjacency`` does.
+    Updates ``colors_ext`` in place; returns ``(colors_ext, new_wl,
+    new_count)``.
     """
     n = adj.shape[0]
     cap = wl.shape[0]
     rows_all = gather_rows(adj, wl) if (
-        reuse_rows and coarsen_ff == 1 and coarsen_cr == 1) else None
+        reuse_rows and coarsen_ff == 1 and coarsen_cr == 1
+        and not _on_card(wl)) else None
     for lo, hi in _chunk_bounds(cap, coarsen_ff):
-        colors_ext = ff_apply(adj, colors_ext, wl[lo:hi], kind, rows=rows_all)
+        colors_ext = ff_apply(adj, colors_ext, wl[lo:hi], kind, rows=rows_all,
+                              deg_ext=deg_ext)
     lose_parts = []
     for lo, hi in _chunk_bounds(cap, coarsen_cr):
         ids = wl[lo:hi]

@@ -26,6 +26,7 @@ __all__ = [
     "auto_tile_thresholds",
     "compose_pairs",
     "csr_from_edges",
+    "gather_rows",
     "next_pow2",
     "padded_ragged",
 ]
@@ -158,6 +159,18 @@ def padded_ragged(row_offsets: np.ndarray, col_indices: np.ndarray, width: int,
     keep = within < width
     out[rows[keep], within[keep]] = col_indices[keep]
     return out
+
+
+def gather_rows(adj: torch.Tensor, ids: torch.Tensor, sentinel: int | None = None):
+    """Gather padded adjacency rows; sentinel ids yield all-sentinel rows.
+
+    Ids are clipped to ``n - 1`` before the gather, as JAX clamps it in
+    ``repro``, and rows of ids ``>= n`` read ``sentinel`` (default ``n``).
+    """
+    n = adj.shape[0]
+    fill = n if sentinel is None else sentinel
+    rows = adj[ids.clamp(0, max(n - 1, 0)).long()]
+    return torch.where((ids < n)[:, None], rows, fill)
 
 
 def compose_pairs(

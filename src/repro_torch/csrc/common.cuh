@@ -1,16 +1,17 @@
 // What the port's kernels share: the loser rule of K1, K3 and K5, the
-// warp-level FirstFit of K1, K2, K3, K4 and K6 (superstep_csr.cu,
-// tile_kernels.cu, d2_kernels.cu), and the pieces every kernel library
-// has. Each csrc/*.cu builds into a library of its own
+// FirstFit of K1, K2, K3, K4 and K6, a warp's or a lane group's
+// (superstep_csr.cu, tile_kernels.cu, d2_kernels.cu), and the pieces every
+// kernel library has. Each csrc/*.cu builds into a library of its own
 // (repro_torch/kernels/build.py), so the extern "C" function below is
 // defined once per library.
 //
 // FirstFit: the smallest colour in [1, W+1] absent from a row of colours.
 // Colours 1..32 are kept as a per-lane register mask OR-reduced across the
-// warp; __ffs on its complement gives the answer unless all 32 are taken.
-// Only then does the warp read its row again into a per-warp bitset of
-// (W+1+31)/32 words in shared memory and reduce the first free bit across
-// lanes, so any width works whose bitsets fit a block's shared memory.
+// lanes that share the row (a warp, or a group of G lanes of one); __ffs on
+// its complement gives the answer unless all 32 are taken. Only then do
+// those lanes read their row again into their own bitset of (W+1+31)/32
+// words in shared memory and reduce the first free bit across themselves,
+// so any width works whose bitsets fit a block's shared memory.
 #pragma once
 
 #include <climits>
@@ -39,36 +40,46 @@ __host__ __device__ __forceinline__ int bitset_words(int W) {
   return (W + 1 + 31) >> 5;
 }
 
-// Smallest colour in [1, W+1] absent from { color_of(j) : 0 <= j < d }.
-// `m` is the warp-reduced mask of colours 1..32 already seen. All 32 lanes
-// call this together and all get the answer. `words` is the warp's scratch
-// bitset of bitset_words(W) words; only words 1.. are used, and only when
-// colours 1..32 are all taken. Needs d <= W, so a free colour exists.
-template <class ColorOf>
-__device__ __forceinline__ int first_fit(unsigned m, const ColorOf& color_of,
-                                         int d, int W, unsigned* words) {
-  const int lane = threadIdx.x & 31;
+// Smallest colour in [1, W+1] absent from { color_of(j) : 0 <= j < d }, for
+// a group of G lanes (G divides 32) sharing one row: `glane` is a lane's
+// index in the group and `gmask` the group's lanes in the warp. `m` is the
+// group-reduced mask of colours 1..32 already seen. The group's lanes call
+// this together and all get the answer; other groups of the warp may take
+// other branches. `words` is the group's scratch bitset of bitset_words(W)
+// words; only words 1.. are used, and only when colours 1..32 are all
+// taken. Needs d <= W, so a free colour exists.
+template <int G, class ColorOf>
+__device__ __forceinline__ int first_fit_group(unsigned m, const ColorOf& color_of,
+                                               int d, int W, unsigned* words,
+                                               int glane, unsigned gmask) {
   const unsigned cand0 = W >= 31 ? kFull : ((1u << (W + 1)) - 1u);
   const unsigned free0 = ~m & cand0;
   if (free0) return __ffs(free0);
   const int nwords = bitset_words(W);
-  for (int k = 1 + lane; k < nwords; k += 32) words[k] = 0u;
-  __syncwarp();
-  for (int j = lane; j < d; j += 32) {
+  for (int k = 1 + glane; k < nwords; k += G) words[k] = 0u;
+  __syncwarp(gmask);
+  for (int j = glane; j < d; j += G) {
     const int c = color_of(j);
     if (c > 32 && c <= W + 1) atomicOr(&words[(c - 1) >> 5], 1u << ((c - 1) & 31));
   }
-  __syncwarp();
+  __syncwarp(gmask);
   int best = INT_MAX;
-  for (int k = 1 + lane; k < nwords; k += 32) {
+  for (int k = 1 + glane; k < nwords; k += G) {
     unsigned f = ~words[k];
     const int hi = W - 32 * k;  // last candidate bit in word k (>= 0)
     if (hi < 31) f &= (2u << hi) - 1u;
     if (f) best = min(best, 32 * k + __ffs(f) - 1);
   }
-  best = __reduce_min_sync(kFull, best);
-  __syncwarp();  // the scratch words are reused by the next call
+  best = __reduce_min_sync(gmask, best);
+  __syncwarp(gmask);  // the scratch words are reused by the next call
   return best + 1;
+}
+
+// first_fit_group for a whole warp sharing one row (K1, K2, K3, K6).
+template <class ColorOf>
+__device__ __forceinline__ int first_fit(unsigned m, const ColorOf& color_of,
+                                         int d, int W, unsigned* words) {
+  return first_fit_group<32>(m, color_of, d, W, words, threadIdx.x & 31, kFull);
 }
 
 // Lets `kernel` take `smem` bytes of dynamic shared memory (needed above

@@ -131,9 +131,10 @@ def d2_sgr_step(
     over the hop-1 and hop-2 colour tiles when ``include_first_hop`` (its
     plain version on the CPU: ``repro``'s ``use_kernel=True`` branch, whose
     colors equal its FirstFit ``kind`` branch), else ``ff_apply`` over the
-    hop-2 tile (K4 on the card).  ConflictResolve is ``cr_flags`` (K5 on the
-    card).  ``coarsen`` chunks the worklist; later chunks see earlier
-    chunks' writes.  Updates ``colors_ext`` in place; returns
+    hop-2 id rows (K4 on the card, reading their colours in place).
+    ConflictResolve is ``cr_flags`` over the composed id rows (K5 on the
+    card, reading colours and degrees in place).  ``coarsen`` chunks the
+    worklist; later chunks see earlier chunks' writes.  Updates ``colors_ext`` in place; returns
     ``(colors_ext, new_wl, new_count)``.
     """
     n = colors_ext.shape[0] - 1  # colored-side vertex count (sentinel slot)

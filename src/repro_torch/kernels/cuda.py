@@ -10,8 +10,8 @@ import ctypes
 
 import torch
 
-__all__ = ["MAX_SMEM", "WARPS_PER_BLOCK", "check", "check_bitset_width", "on_cpu",
-           "stream", "tile_shape"]
+__all__ = ["MAX_SMEM", "ROW_LANES", "WARPS_PER_BLOCK", "check", "check_bitset_width",
+           "on_cpu", "row_lanes", "row_source", "stream", "tile_shape"]
 
 # shared memory one block may use (H100: 227 KB)
 MAX_SMEM = 227 * 1024
@@ -50,16 +50,95 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
 
 
-# warps a block of K1, K3, K4 or K6 runs, each with its own FirstFit bitset
+# warps a block of K1, K3 or K6 runs, each with its own FirstFit bitset
 WARPS_PER_BLOCK = 8
+# lanes a row of K4 or K5 may take (a thread, or a group of a warp), and the
+# threads of one of their blocks: 256 / lanes rows, each with a bitset
+ROW_LANES = (1, 4, 8, 16, 32)
+ROW_THREADS = 256
+# the default layout: a thread a row up to ROW_THREAD_MAX lanes, then groups
+# of ROW_GROUP lanes; rows read at full width past ROW_GROUP_MAX take a warp
+ROW_THREAD_MAX = 16
+ROW_GROUP = 8
+ROW_GROUP_MAX = 64
 
 
-def check_bitset_width(W: int) -> None:
-    """Raise if a block's FirstFit bitsets at width ``W`` pass ``MAX_SMEM``."""
-    if WARPS_PER_BLOCK * ((int(W) + 32) // 32) * 4 > MAX_SMEM:
+def _bitsets_fit(W: int, bitsets: int) -> bool:
+    return bitsets * ((int(W) + 32) // 32) * 4 <= MAX_SMEM
+
+
+def check_bitset_width(W: int, bitsets: int = WARPS_PER_BLOCK) -> None:
+    """Raise if a block's ``bitsets`` FirstFit bitsets at width ``W`` pass
+    ``MAX_SMEM``."""
+    if not _bitsets_fit(W, bitsets):
         raise ValueError(
-            f"tile width W={W} needs more shared memory for its FirstFit "
+            f"tile width W={W} needs more shared memory for {bitsets} FirstFit "
             "bitsets than a block has")
+
+
+def row_lanes(W: int, lanes: int | None = None, bitset: bool = True,
+              full: bool = False) -> int:
+    """Lanes a row of K4 or K5 takes at width ``W``: ``lanes`` if given (a
+    layout forced, checked), else a thread a row up to ``ROW_THREAD_MAX``,
+    then ``ROW_GROUP`` lanes; rows read at ``full`` width (gathered rows or
+    tiles, not a table read up to each degree) take a warp past
+    ``ROW_GROUP_MAX``, and so does any width where K4's bitsets for
+    ``ROW_GROUP`` lanes a row would not fit a block.  With ``bitset`` (K4's
+    FirstFit) raises where the layout's bitsets pass a block's shared
+    memory."""
+    if lanes is None:
+        lanes = 1 if W <= ROW_THREAD_MAX else ROW_GROUP
+        if (full and W > ROW_GROUP_MAX) or (
+                bitset and not _bitsets_fit(W, ROW_THREADS // lanes)):
+            lanes = 32
+    elif lanes not in ROW_LANES:
+        raise ValueError(f"lanes must be one of {ROW_LANES}, got {lanes}")
+    if bitset and W >= 32:
+        check_bitset_width(W, ROW_THREADS // lanes)
+    return lanes
+
+
+def row_source(colors_ext, ids, table, rows, deg_ext=None):
+    """Check the arguments of ``firstfit_rows`` and ``conflict_rows``.
+
+    Returns ``(src, w, W, cpu)``: the row source (``table``, an int32
+    ``(n, W)`` table whose rows are unit-stride, a column slice of a wider
+    one allowed; or ``rows``, ``(w, W)``), the row count, the width and
+    ``on_cpu``'s answer.  Raises unless exactly one source is given and the
+    shapes and devices agree.
+    """
+    if (table is None) == (rows is None):
+        raise ValueError("give exactly one of table= and rows=")
+    src = table if rows is None else rows
+    if src.dim() != 2:
+        raise ValueError(f"{'table' if rows is None else 'rows'} must be 2-D, "
+                         f"got shape {tuple(src.shape)}")
+    if ids.dim() != 1:
+        raise ValueError(f"ids must be 1-D, got shape {tuple(ids.shape)}")
+    n = colors_ext.shape[0] - 1
+    w, W = int(ids.shape[0]), int(src.shape[1])
+    if rows is None and table.shape[0] != n:
+        raise ValueError(f"table has {table.shape[0]} rows, colors_ext {n + 1} slots")
+    if rows is not None and rows.shape[0] != w:
+        raise ValueError(f"rows has {rows.shape[0]} rows for {w} ids")
+    if deg_ext is not None and deg_ext.shape != colors_ext.shape:
+        raise ValueError(f"deg_ext has shape {tuple(deg_ext.shape)}, colors_ext "
+                         f"{tuple(colors_ext.shape)}")
+    cpu = on_cpu(colors_ext, ids, *(() if deg_ext is None else (deg_ext,)),
+                 *(() if rows is None else (rows,)))
+    if rows is None:
+        if table.device != ids.device:
+            raise ValueError(
+                f"tensors must all lie on the CPU or all on one CUDA device, got "
+                f"the table on {table.device} and the rest on {ids.device}")
+        if not cpu and (table.dtype != torch.int32
+                        or (W > 1 and table.stride(1) != 1)
+                        or table.stride(0) < W):
+            raise ValueError(
+                "the CUDA kernels take an int32 table with unit-stride rows, got "
+                f"{table.dtype} of shape {tuple(table.shape)}, strides "
+                f"{table.stride()}")
+    return src, w, W, cpu
 
 
 def tile_shape(ids, nid, my_c, nc, my_d, nd) -> tuple[int, int]:

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import repro_torch
+import repro_torch.core.coloring as core_coloring
 from repro_torch.core.coloring import order_tail, run_ragged_engine
 from repro_torch.core.csr import CSRGraph, DeviceCSR, csr_from_edges
 from repro_torch.d2 import (
@@ -33,9 +34,20 @@ from repro_torch.graphs import (
     jacobian_tall_skinny,
     power_law,
 )
-from repro_torch.kernels.conflict.kernel import conflict_tile, conflict_tile_ref
+from repro_torch.kernels.conflict.kernel import (
+    conflict_rows,
+    conflict_rows_ref,
+    conflict_tile,
+    conflict_tile_ref,
+)
+from repro_torch.kernels.cuda import ROW_LANES
 from repro_torch.kernels.d2.kernel import d2_firstfit, d2_firstfit_ref
-from repro_torch.kernels.firstfit.kernel import firstfit_tile, firstfit_tile_ref
+from repro_torch.kernels.firstfit.kernel import (
+    firstfit_rows,
+    firstfit_rows_ref,
+    firstfit_tile,
+    firstfit_tile_ref,
+)
 from repro_torch.kernels.superstep.csr_kernel import (
     _launch_tail,
     serial_tail_csr,
@@ -52,7 +64,7 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 FIELDS = ("iterations", "work_items", "padded_work", "class_cells", "converged")
 KERNELS = (superstep_csr, serial_tail_csr, superstep_tile, firstfit_tile,
-           conflict_tile, d2_firstfit)
+           conflict_tile, firstfit_rows, conflict_rows, d2_firstfit)
 
 
 @pytest.fixture
@@ -115,6 +127,34 @@ def _tile_inputs(W, seed=6, w=300, n=1000):
     return tuple(torch.from_numpy(a) for a in (ids, nid, my_c, nc, my_d, nd))
 
 
+def _rows_inputs(W, seed=8, w=300, n=1000):
+    """``(table, deg_ext, colors_ext, ids, rows)`` for the row-resident K4
+    and K5: ``table`` is ``(n, W + 3)``, read as its first W columns (row v
+    holds ``deg_ext[v]`` ids, then the sentinel n); ``rows`` is a ``(w, W)``
+    id tile with self, duplicate and sentinel lanes; five sentinel ids; six
+    rows of each source hold a pool of W vertices coloured 1..W (answer
+    W + 1, through the shared-bitset path for W >= 32)."""
+    rng = np.random.default_rng(seed)
+    n = max(n, 2 * W + 8)
+    colors = rng.integers(0, 6, n + 1).astype(np.int32)
+    deg = rng.integers(0, W + 1, n + 1).astype(np.int32)
+    table = rng.integers(0, n, (n, W + 3)).astype(np.int32)
+    ids = rng.choice(n, w, replace=False).astype(np.int32)
+    ids[-5:] = n
+    rows = rng.integers(0, n + 1, (w, W)).astype(np.int32)
+    rows[:, 0] = np.where(rng.random(w) < 0.3, ids, rows[:, 0])  # self lanes
+    rows[:, -1] = np.where(rng.random(w) < 0.3, rows[:, 0], n)  # duplicate, sentinel
+    pool = rng.choice(np.setdiff1d(np.arange(n), ids), W, replace=False)
+    colors[pool] = np.arange(1, W + 1)
+    for i in range(6):
+        deg[ids[i]] = W
+        table[ids[i], :W] = rng.permutation(pool)
+        rows[i] = rng.permutation(pool)
+    table[:, :W][np.arange(W)[None, :] >= deg[:n, None]] = n
+    colors[n] = deg[n] = 0
+    return tuple(torch.from_numpy(a) for a in (table, deg, colors, ids, rows))
+
+
 def _d2_tiles(w, W1, W2, seed=7, full_rows=4):
     """Random hop-1 ``(w, W1)`` and hop-2 ``(w, W2)`` colour tiles for K6:
     zeros, colours past the bound, and ``full_rows`` rows holding every
@@ -165,6 +205,12 @@ def test_wrappers_take_plain_versions_on_cpu_and_count_no_launch(zero_counts):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert torch.equal(conflict_tile(*args, "id"), conflict_tile_ref(*args, "id"))
     assert torch.equal(firstfit_tile(args[3]), firstfit_tile_ref(args[3]))
+    table, deg, colors, ids, rows = _rows_inputs(40)
+    for src in (dict(table=table[:, :40]), dict(rows=rows)):
+        assert torch.equal(firstfit_rows(colors, ids, **src),
+                           firstfit_rows_ref(colors, ids, **src))
+        assert torch.equal(conflict_rows(colors, deg, ids, "degree", **src),
+                           conflict_rows_ref(colors, deg, ids, "degree", **src))
     nc1, nc2 = _d2_tiles(40, 26, 64)
     assert torch.equal(d2_firstfit(nc1, nc2), d2_firstfit_ref(nc1, nc2))
     g = build_graph("rmat-g", 0.05)
@@ -412,14 +458,73 @@ def test_cuda_tile_kernels_match_plain(cuda_device, zero_counts, W, heuristic):
     assert torch.equal(conflict_tile_ref(*args, heuristic),
                        conflict_tile(*gpu, heuristic).cpu())
     assert torch.equal(firstfit_tile_ref(args[3]), firstfit_tile(gpu[3]).cpu())
-    assert [k.launches for k in KERNELS] == [0, 0, 1, 1, 1, 0]
+    assert [k.launches for k in KERNELS] == [0, 0, 1, 1, 1, 0, 0, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", ROW_LANES)
+@pytest.mark.parametrize("source", ["table", "rows"])
+@pytest.mark.parametrize("W", [1, 8, 26, 33, 376])
+def test_cuda_rows_kernels_match_plain(cuda_device, zero_counts, W, source, lanes):
+    """K4 and K5 reading rows in place, in a forced layout, equal their plain
+    versions: source (a) a column-sliced table read up to each degree,
+    source (b) a gathered id tile."""
+    table, deg, colors, ids, rows = _rows_inputs(W, seed=W)
+    if source == "table":  # sliced on the card: rows W + 3 words apart
+        cpu, gpu = dict(table=table[:, :W]), dict(table=table.to(cuda_device)[:, :W])
+    else:
+        cpu, gpu = dict(rows=rows), dict(rows=rows.to(cuda_device))
+    colors_g, deg_g, ids_g = (a.to(cuda_device) for a in (colors, deg, ids))
+    extra = dict(deg_ext=deg_g) if source == "table" else {}
+    got = firstfit_rows(colors_g, ids_g, **gpu, **extra, lanes=lanes)
+    assert torch.equal(firstfit_rows_ref(colors, ids, **cpu), got.cpu())
+    for heuristic in ("id", "degree"):
+        got = conflict_rows(colors_g, deg_g, ids_g, heuristic, **gpu, lanes=lanes)
+        assert torch.equal(conflict_rows_ref(colors, deg, ids, heuristic, **cpu), got.cpu())
+    assert [k.launches for k in KERNELS] == [0, 0, 0, 0, 0, 1, 2, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", ROW_LANES)
+@pytest.mark.parametrize("W", [8, 33, 376])
+def test_cuda_tile_entry_points_take_each_layout(cuda_device, zero_counts, W, lanes):
+    args = _tile_inputs(W, seed=W)
+    gpu = [a.to(cuda_device) for a in args]
+    assert torch.equal(firstfit_tile_ref(args[3]), firstfit_tile(gpu[3], lanes=lanes).cpu())
+    for heuristic in ("id", "degree"):
+        assert torch.equal(conflict_tile_ref(*args, heuristic),
+                           conflict_tile(*gpu, heuristic, lanes=lanes).cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opts", [
+    dict(), dict(buckets=(4, 16)), dict(coarsen_ff=3, coarsen_cr=2),
+    dict(mode="fused", reuse_rows=True)],
+    ids=["one-class", "buckets", "chunked", "fused-reuse-rows"])
+def test_cuda_classic_gathers_no_tile(cuda_device, zero_counts, monkeypatch, opts):
+    """The classic engine on the card reads its rows in place: with
+    ``gather_rows`` made to raise for that call only, it still equals the
+    CPU run in every field."""
+    g = build_graph("rmat-g", 0.05)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the classic step gathered a tile on the card")
+
+    with monkeypatch.context() as m:
+        m.setattr(core_coloring, "gather_rows", refuse)
+        a = repro_torch.color(g, device=cuda_device, engine="classic", **opts)
+    assert firstfit_rows.launches > 0 and conflict_rows.launches > 0
+    assert firstfit_tile.launches == conflict_tile.launches == 0
+    b = repro_torch.color(g, device="cpu", engine="classic", **opts)
+    np.testing.assert_array_equal(a.colors, b.colors)
+    assert all(getattr(a, f) == getattr(b, f) for f in FIELDS)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("opts,kernels", [
-    (dict(engine="classic"), (firstfit_tile, conflict_tile)),
+    (dict(engine="classic"), (firstfit_rows, conflict_rows)),
     (dict(engine="classic", mode="fused", reuse_rows=True),
-     (firstfit_tile, conflict_tile)),
+     (firstfit_rows, conflict_rows)),
     (dict(engine="padded"), (superstep_tile, serial_tail_csr)),
     (dict(engine="padded", mode="fused"), (superstep_tile, serial_tail_csr)),
     (dict(coarsen_lanes=1024), (superstep_tile, serial_tail_csr)),
@@ -452,6 +557,13 @@ def test_cuda_wrappers_reject_other_dtypes_and_mixed_devices(cuda_device):
         conflict_tile(*gpu_args[:3], args[3], *gpu_args[4:])
     with pytest.raises(ValueError, match="int32"):
         superstep_tile(*gpu_args[:5], gpu_args[5].long())
+    table, deg, colors, ids, rows = (a.to(cuda_device) for a in _rows_inputs(16))
+    with pytest.raises(ValueError, match="int32 table"):
+        firstfit_rows(colors, ids, table=table.long()[:, :16], deg_ext=deg)
+    with pytest.raises(ValueError, match="all lie"):
+        conflict_rows(colors, deg, ids, table=table.cpu()[:, :16])
+    with pytest.raises(ValueError, match="int32"):
+        conflict_rows(colors, deg, ids, rows=rows.long())
 
 
 @pytest.mark.cuda
@@ -483,8 +595,8 @@ def test_cuda_d2_sgr_step_matches_cpu(cuda_device, zero_counts, include_first_ho
     got = _d2_steps(g, cuda_device, include_first_hop)
     for (wc, wwl, wn), (gc, gwl, gn) in zip(want, got):
         assert torch.equal(wc, gc) and torch.equal(wwl, gwl) and wn == gn
-    step_kernel = d2_firstfit if include_first_hop else firstfit_tile
-    assert step_kernel.launches == 4 and conflict_tile.launches == 4
+    step_kernel = d2_firstfit if include_first_hop else firstfit_rows
+    assert step_kernel.launches == 4 and conflict_rows.launches == 4
 
 
 @pytest.mark.cuda
