@@ -10,9 +10,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 1. device  — needs ``torch.cuda.is_available()``; prints the card.
 2. build   — compiles every CUDA source (one ``nvcc`` each, in parallel)
              and prints the ``-Xptxas -v`` register / shared-memory lines.
-3. K1      — the superstep kernel against its plain version, bit for bit,
-             over class widths 1..4096, both heuristics, sentinel-padded
-             worklists of odd lengths.
+3. K1      — the superstep over packed CSR words against its plain
+             version, bit for bit, over class widths 1..4096, both
+             heuristics, sentinel-padded worklists of odd lengths, in each
+             layout (1, 4, 8, 16, 32 lanes a row).
 4. K2      — the serial-tail kernel against its plain version, bit for bit,
              through its wrappers and in each layout (a thread or a warp an
              entry): CSR tails of 1..4096 entries at W = 8 and 376, a
@@ -20,20 +21,23 @@ Phases, in order; any failure ends the run with a non-zero exit code:
              ``grid2d(300, 300)`` in ``order_tail`` order, rows laid out by
              hand (asymmetric, self, duplicate and sentinel lanes, colours
              past 32) and composed two-hop rows at W = 702.
-5. K3-K5   — K3 over gathered tiles, and K4 and K5 over each of their
-             lane sources (a column-sliced table read by id up to each
-             degree, a gathered id tile with self, duplicate and sentinel
-             lanes, gathered tiles) in each layout (1, 4, 8, 16, 32 lanes a
-             row), against their plain versions, bit for bit: widths
-             1..4096, both heuristics, sentinel rows, rows whose colours
-             1..32 are all taken.
+5. K3-K5   — K3 over each of its row sources (the gathered tiles, a
+             column-sliced table read by id up to each degree, the same
+             rows as CSR, composed two-hop rows with and without the hop-1
+             lanes and over a shard's slice of the first hop, CSR rows at
+             kkt_power's W = 144,504), and K4 and K5 over each of theirs (a
+             table by id, a gathered id tile with self, duplicate and
+             sentinel lanes, gathered tiles), in each layout whose bitsets
+             fit (1, 4, 8, 16, 32 lanes a row), against their plain
+             versions, bit for bit: widths 1..5000, both heuristics,
+             sentinel rows, rows whose colours 1..32 are all taken.
 6. K6      — the two-tile distance-2 FirstFit against its plain version,
              bit for bit: W1 in 1..33, W2 in 1..4096, w in 1, 37, 1000,
              random rows and rows holding every colour 1..W1+W2.
 7. latency — a dependent-load chain (``csrc/latency_probe.cu``) times one
              L1 hit and one L2 hit: K2's depth bound is depth L2 hits; and
              the rate of random 4-byte reads from a table held in L2, what
-             K4's and K5's colour and degree reads are.
+             the row kernels' colour and degree reads are.
 8. slice   — every SUITE graph at scale 0.25 through ``color`` on the card
              and on the CPU: every ``ColoringResult`` field equal; then the
              classic, padded, chunked and fused options on rmat-er, rmat-g
@@ -47,24 +51,30 @@ Phases, in order; any failure ends the run with a non-zero exit code:
              counts set to 0 just before and read just after, then timed:
              the default ragged path, the classic engine and the padded
              engine on the paper's three 1M-vertex graphs (rmat-er, rmat-g,
-             thermal2); the default path on kkt_power at scale 4 (degrees
-             past the packed word: K3 in every class); chunked
-             (coarsen_lanes=65536) and fused ragged runs on rmat-er.
-             Valid colorings, launch counts above 0 for the kernels each
-             path runs, rmat-er's default colors equal to the serial-greedy
-             oracle; times, per-kernel times from CUDA events at the main
-             paths' shapes (each kernel held against its plain version
-             there; K2 also in each layout, with its tail's dependency
-             depth, computed on the host, and the bound max(bytes, depth x
-             L2)), peak memory, a profiler line.  The classic engine's
-             counted runs go with ``gather_rows`` made to raise (its K4
-             and K5 read rows in place); K4 and K5 are timed at its first
+             thermal2); the default path on kkt_power at the paper's size
+             (scale 21.4: degrees past the packed word, K3 in every class,
+             K2 at W = 144,504); chunked (coarsen_lanes=65536) and fused
+             ragged runs on rmat-er. Valid colorings, launch counts above 0
+             for the kernels each path runs, rmat-er's default colors equal
+             to the serial-greedy oracle; times, per-kernel times from CUDA
+             events at the main paths' shapes (each kernel held against its
+             plain version there; K1 in each layout and beside K3 over the
+             same CSR rows; K2 also in each layout, with its tail's
+             dependency depth, computed on the host, and the bound max(bytes,
+             depth x L2)), peak memory, allocator counts, a profiler line.
+             Every counted run goes with no tile gathered: the classic
+             engine's with ``gather_rows`` made to raise, the others with
+             the superstep's ``provider.rows`` made to raise (K1 and K3 read
+             rows in place). K3 is timed per class in place beside its
+             bound, the random gathers at the probe's rate and the old path
+             (the gathers, then the tile entry point in the warp layout)
+             where its tiles fit; K4 and K5 at the classic engine's first
              step on each graph and at thermal2's step 101, through the
-             wrapper and in each layout forced, beside their bound, the
-             old path (gathered tiles, then the kernel) and the gathers at
-             the probe's rate.
+             wrapper and in each layout forced, beside their bound, the old
+             path and the gathers at the probe's rate.
 10. full distance-2 — ``distance2`` on rmat-er and thermal2 (``auto``
-             composes the two hops on the fly: K3, K2 over composed rows),
+             composes the two hops on the fly: K3 over composed rows read
+             in place, timed at the first step; K2 over composed rows),
              ``distance2`` precomputed on thermal2 (K1 over G², K2; the
              host G² build timed apart), ``bipartite`` on
              ``jacobian_band(1<<20, 3)`` (K3, K2; optimum 7 colours, and
@@ -84,6 +94,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -141,7 +152,15 @@ from repro_torch.kernels.conflict.kernel import (  # noqa: E402
     conflict_tile,
     conflict_tile_ref,
 )
-from repro_torch.kernels.cuda import ROW_LANES, check, row_lanes, stream  # noqa: E402
+from repro_torch.kernels.cuda import (  # noqa: E402
+    ROW_LANES,
+    CsrRows,
+    TableRows,
+    TwoHopLanes,
+    check,
+    row_lanes,
+    stream,
+)
 from repro_torch.kernels.d2.kernel import d2_firstfit, d2_firstfit_ref  # noqa: E402
 from repro_torch.kernels.firstfit.kernel import (  # noqa: E402
     firstfit_rows,
@@ -160,6 +179,9 @@ from repro_torch.kernels.superstep.csr_kernel import (  # noqa: E402
     tail_ranks,
 )
 from repro_torch.kernels.superstep.kernel import (  # noqa: E402
+    source_tile,
+    superstep_rows,
+    superstep_rows_ref,
     superstep_tile,
     superstep_tile_ref,
 )
@@ -203,16 +225,12 @@ def event_ms(fn, reps: int, warm: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(deg_ext: np.ndarray, wl: np.ndarray, W: int, per_entry: int) -> float:
-    """Least time to move the bytes K1 or K2 must move, over HBM's rate.
-
-    ``per_entry`` bytes per worklist entry (K1: wl, R[v], R[v+1], packed[v]
-    in, new color and need out, 24 B; K2: wl, starts, degs in, the clear
-    and the color out, 20 B) and 8 B per neighbour read (C and the
-    neighbour's packed word or color), counting each row up to the class
-    width W.
-    """
-    nbytes = int(wl.size) * per_entry + int(np.minimum(deg_ext[wl], W).sum()) * 8
+def bound_ms(deg_ext: np.ndarray, wl: np.ndarray, W: int) -> float:
+    """Least time to move the bytes K2 must move, over HBM's rate: 20 B per
+    worklist entry (wl, starts, degs in, the clear and the color out) and
+    8 B per neighbour read (C and the neighbour's color), counting each row
+    up to the width W."""
+    nbytes = int(wl.size) * 20 + int(np.minimum(deg_ext[wl], W).sum()) * 8
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
@@ -327,18 +345,20 @@ def check_k1(dev_cuda):
             want_c, want_n = superstep_csr_ref(
                 cpu.row_starts, cpu.col_padded, packed, torch.from_numpy(wl),
                 W, heuristic)
-            got_c, got_n = superstep_csr(
-                gpu.row_starts, gpu.col_padded, packed.to(dev_cuda),
-                torch.from_numpy(wl).to(dev_cuda), W, heuristic)
-            torch.cuda.synchronize()
-            if not (torch.equal(want_c, got_c.cpu())
-                    and torch.equal(want_n, got_n.cpu())):
-                bad = (want_c != got_c.cpu()).nonzero().flatten()[:5].tolist()
-                fail(f"K1 differs from its plain version: W={W} {mode} "
-                     f"{heuristic} w={wl.size}, first rows {bad}")
-            cases += 1
+            for lanes in ROW_LANES:
+                got_c, got_n = superstep_csr(
+                    gpu.row_starts, gpu.col_padded, packed.to(dev_cuda),
+                    torch.from_numpy(wl).to(dev_cuda), W, heuristic, lanes=lanes)
+                torch.cuda.synchronize()
+                if not (torch.equal(want_c, got_c.cpu())
+                        and torch.equal(want_n, got_n.cpu())):
+                    bad = (want_c != got_c.cpu()).nonzero().flatten()[:5].tolist()
+                    fail(f"K1 differs from its plain version: W={W} {mode} "
+                         f"{heuristic} w={wl.size} lanes={lanes}, first rows {bad}")
+                cases += 1
     print(f"K1 == plain on {cases} cases (W from 1 to 4096, both heuristics, "
-          "random, low and clique colors, sentinels)", flush=True)
+          f"random, low and clique colors, sentinels, layouts of {ROW_LANES} lanes "
+          "a row)", flush=True)
 
 
 def csr_tail(g, wl, colors):
@@ -555,7 +575,7 @@ def check_tiles(dev_cuda):
     for bit."""
     rng = np.random.default_rng(17)
     cases = {"K3": 0, "K4": 0, "K5": 0}
-    widths = (1, 2, 8, 16, 26, 31, 32, 33, 63, 64, 100, 376, 1000, 4096)
+    widths = (1, 2, 8, 16, 26, 31, 32, 33, 63, 64, 100, 376, 1000, 4096, 5000)
     for W in widths:
         w = max(64, min(3001, 4_000_000 // W))
         for mode in ("random", "low", "full"):
@@ -591,17 +611,168 @@ def check_tiles(dev_cuda):
                             fail(f"{name} differs from its plain version: W={W} {mode} "
                                  f"{label} lanes={lanes}")
                         cases[name] += 1
-            for h in HEURISTICS:
-                want = superstep_tile_ref(*cpu, h)
-                got = superstep_tile(*gpu, h)
-                if not all(torch.equal(a, b.cpu()) for a, b in zip(want, got)):
-                    fail(f"K3 differs from its plain version: W={W} {mode} {h}")
-                cases["K3"] += 1
-    print(f"K3, K4, K5 == plain on {cases} cases (W in {widths}; random, low "
+            cases["K3"] += check_k3_sources(
+                f"W={W} {mode}", W, dev_cuda,
+                {"tile": (tuple(cpu), lambda h, k: superstep_tile(*gpu, h, lanes=k)),
+                 **row_sources(table, deg, colors, ids, W)})
+    print(f"K4, K5 == plain on {cases} cases (W in {widths}; random, low "
           "and full rows; both heuristics; sentinel rows; K4 and K5 over a "
           "column-sliced table read to each degree, a gathered id tile with "
           f"self, duplicate and sentinel lanes, and gathered tiles, in each "
-          f"layout of {ROW_LANES} lanes a row)", flush=True)
+          f"layout of {ROW_LANES} lanes a row; K3 over the tiles, the table "
+          "and its CSR rows)", flush=True)
+    n3 = check_k3_wide(dev_cuda, rng)
+    print(f"K3 == plain on {n3} more cases: composed two-hop rows (W1, W2) in "
+          f"{TWO_HOP_SHAPES} (hop-1 lanes or not, a shard's slice of the first hop), "
+          "random, low and full colours; CSR rows at W = 144,504 (kkt_power's "
+          "widest class) with rows holding 1..W one each; each layout whose "
+          "bitsets fit", flush=True)
+
+
+def table_csr(table: torch.Tensor, deg: torch.Tensor, W: int):
+    """``(R, C)`` of the rows of ``table`` (row v's first ``deg[v]`` ids),
+    with W slack words of the sentinel n after C, as ``DeviceCSR`` pads."""
+    n = table.shape[0]
+    d = deg[:n].long()
+    R = torch.cat([torch.zeros(1, dtype=torch.long), torch.cumsum(d, 0)]).int()
+    keep = torch.arange(table.shape[1])[None, :] < d[:, None]
+    return R, torch.cat([table[keep], torch.full((W,), n, dtype=torch.int32)])
+
+
+def row_sources(table, deg, colors, ids, W: int) -> dict:
+    """K3 over source (a), the table read by id up to each degree, and (d),
+    its rows as CSR: ``{label: (plain result fn, card run fn(h, lanes))}``."""
+    dev = torch.device("cuda", 0)
+    table_g, deg_g, colors_g, ids_g = (a.to(dev) for a in (table, deg, colors, ids))
+    R, C = table_csr(table, deg, W)
+    srcs = {"table": (TableRows(table[:, :W]), TableRows(table_g[:, :W])),
+            "csr": (CsrRows(R, C), CsrRows(R.to(dev), C.to(dev)))}
+    return {label: ((colors, deg, ids, cpu_src),
+                    lambda h, k, src=gpu_src: superstep_rows(
+                        colors_g, deg_g, ids_g, h, source=src, W=W, lanes=k))
+            for label, (cpu_src, gpu_src) in srcs.items()}
+
+
+def check_k3_sources(label: str, W: int, dev_cuda, runs: dict) -> int:
+    """K3 over each source of ``runs`` (``{name: (plain args, run(h, lanes))}``;
+    the tile entry point's plain args are its tiles, the others' ``(read,
+    deg_ext, ids, source)``), both heuristics, each layout whose bitsets
+    fit, against the plain version bit for bit. Returns the launches
+    checked."""
+    cases = 0
+    for name, (args, run) in runs.items():
+        for h in HEURISTICS:
+            if name == "tile":
+                want = superstep_tile_ref(*args, h)
+            else:
+                read, deg, ids, src = args
+                want = superstep_rows_ref(read, deg, ids, h, source=src, W=W)
+            for lanes in ROW_LANES:
+                try:
+                    row_lanes(W, lanes, full=name == "tile")
+                except ValueError:
+                    continue  # this layout's bitsets do not fit a block
+                got = run(h, lanes)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b.cpu()) for a, b in zip(want, got)):
+                    bad = (want[0] != got[0].cpu()).nonzero().flatten()[:5].tolist()
+                    fail(f"K3 differs from its plain version: {label} {name} {h} "
+                         f"lanes={lanes}, first rows {bad}")
+                cases += 1
+    return cases
+
+
+# (W1, W2, hop-1 lanes, start): composed two-hop shapes phase 5 checks;
+# (26, 26) is distance-2 on rmat-er, (7, 7) the banded Jacobian's bipartite
+# rows, the last two pass W = 4096
+TWO_HOP_SHAPES = ((1, 1, True, 0), (3, 10, True, 0), (8, 16, True, 300),
+                  (26, 26, True, 0), (7, 7, False, 0), (33, 130, True, 0),
+                  (40, 120, False, 0))
+
+
+def two_hop_case(rng, W1: int, W2: int, first_hop: bool, start: int, mode: str):
+    """``(source, W, deg_ext, colors_ext, ids)`` CPU inputs for K3 over
+    composed two-hop rows: random tables padded past random degrees with
+    their sentinels (n_mid, n), ids with sentinels and, for ``start > 0``,
+    ids below and past the first hop's slice; colours by ``mode`` as
+    ``tile_case``, ``full`` giving the row with the most distinct lanes
+    1, 2, ... one each and its vertex 0."""
+    n = 1500
+    n_mid = n if first_hop else 1100
+    n_rows = n - 2 * start if start else n
+    deg_a = torch.from_numpy(rng.integers(0, W1 + 1, n_rows).astype(np.int32))
+    deg_b = torch.from_numpy(rng.integers(0, W2 + 1, n_mid).astype(np.int32))
+    adj_a = torch.from_numpy(rng.integers(0, n_mid, (n_rows, W1)).astype(np.int32))
+    adj_b = torch.from_numpy(rng.integers(0, n, (n_mid, W2)).astype(np.int32))
+    adj_a[torch.arange(W1)[None, :] >= deg_a[:, None]] = n_mid
+    adj_b[torch.arange(W2)[None, :] >= deg_b[:, None]] = n
+    src = TwoHopLanes(adj_a, adj_b, deg_a, deg_b, first_hop, start, n)
+    W = src.width
+    ids = torch.from_numpy(np.concatenate([rng.integers(0, n, 600), [n] * 5]).astype(np.int32))
+    deg = torch.from_numpy(rng.integers(0, 9, n + 1).astype(np.int32))
+    hi = {"random": W + 1, "low": min(W + 1, 40), "full": 5}[mode]
+    colors = torch.from_numpy(rng.integers(0, hi + 1, n + 1).astype(np.int32))
+    if mode == "full":
+        tile = source_tile(src, ids, n, W)
+        real = [torch.unique(r[(r < n) & (r != v)]) for r, v in zip(tile, ids)]
+        i = max(range(len(real)), key=lambda k: real[k].numel())
+        colors[real[i].long()] = torch.randperm(real[i].numel(), dtype=torch.int32) + 1
+        colors[ids[i]] = 0
+    colors[n] = deg[n] = 0
+    return src, W, deg, colors, ids
+
+
+def wide_csr_case(rng, W: int, mode: str):
+    """``(source, W, deg_ext, colors_ext, ids)``: CSR rows up to W lanes, as
+    kkt_power's widest class has them: eight hubs of degree W - 100 .. W
+    whose lanes are a pool of W vertices coloured 1..W one each (``full``;
+    ``random``: colours in [0, W + 1]), 56 rows of degree up to 8, three
+    sentinel ids; the hubs' own colours 0 (they refit past colour 32)."""
+    n = W + 20_000
+    deg = rng.integers(0, 9, n + 1).astype(np.int64)
+    hubs = rng.choice(n, 8, replace=False)
+    deg[hubs] = rng.integers(W - 100, W + 1, 8)
+    deg[n] = 0
+    pool = rng.choice(n, W, replace=False)
+    R = np.concatenate([[0], np.cumsum(deg[:n])])
+    C = rng.integers(0, n, int(R[-1]) + W).astype(np.int32)
+    colors = rng.integers(0, W + 2, n + 1).astype(np.int32)
+    if mode == "full":
+        colors[pool] = np.arange(1, W + 1)
+    for v in hubs:
+        C[R[v]:R[v] + deg[v]] = rng.permutation(pool)[:deg[v]]
+    colors[hubs] = 0
+    colors[n] = 0
+    C[int(R[-1]):] = n
+    ids = np.concatenate([hubs, rng.choice(n, 56, replace=False), [n] * 3]).astype(np.int32)
+    src = CsrRows(torch.from_numpy(R.astype(np.int32)), torch.from_numpy(C))
+    return (src, W, torch.from_numpy(deg.astype(np.int32)), torch.from_numpy(colors),
+            torch.from_numpy(ids))
+
+
+def to_device(source, device):
+    """A row source with its tensors on ``device``."""
+    return dataclasses.replace(source, **{
+        f.name: getattr(source, f.name).to(device) for f in dataclasses.fields(source)
+        if isinstance(getattr(source, f.name), torch.Tensor)})
+
+
+def check_k3_wide(dev_cuda, rng) -> int:
+    """K3 over composed two-hop rows (``TWO_HOP_SHAPES``) and CSR rows at
+    kkt_power's widest class, against the plain version."""
+    cases = 0
+    inputs = [(f"two-hop {shape} {mode}", two_hop_case(rng, *shape, mode))
+              for shape in TWO_HOP_SHAPES for mode in ("random", "low", "full")]
+    inputs += [(f"csr W=144504 {mode}", wide_csr_case(rng, 144_504, mode))
+               for mode in ("random", "full")]
+    for label, (src, W, deg, colors, ids) in inputs:
+        gpu_src = to_device(src, dev_cuda)
+        read_g, deg_g, ids_g = (a.to(dev_cuda) for a in (colors, deg, ids))
+        cases += check_k3_sources(label, W, dev_cuda, {label.split()[0]: (
+            (colors, deg, ids, src),
+            lambda h, k: superstep_rows(read_g, deg_g, ids_g, h, source=gpu_src, W=W,
+                                        lanes=k))})
+    return cases
 
 
 def d2_tiles(rng, w: int, W1: int, W2: int, mode: str):
@@ -845,8 +1016,9 @@ FULL = {
     "rmat-er": lambda: rmat(1 << 20, 10.0, RMAT_ER, seed=2),
     "rmat-g": lambda: rmat(1 << 20, 10.0, RMAT_G, seed=3),
     "thermal2": lambda: grid2d(3125, 384, diagonals=True),
-    # kkt_power at scale 4: dmax 35,975 passes the packed gather word
-    "kkt_power": lambda: build_graph("kkt_power", 4.0),
+    # kkt_power at the paper's size: dmax 144,504 passes the packed gather
+    # word, so every class runs K3 over CSR rows read in place
+    "kkt_power": lambda: build_graph("kkt_power", 21.4),
 }
 # (label, graph, options, the kernels this path must launch)
 # the classic step on thermal2 timed mid-cascade: the one after the first
@@ -858,7 +1030,7 @@ FULL_RUNS = [
       for g in PAPER),
     *((f"padded {g}", g, dict(engine="padded"), (superstep_tile, serial_tail_csr))
       for g in PAPER),
-    ("ragged kkt_power s=4", "kkt_power", {}, (superstep_tile,)),
+    ("ragged kkt_power", "kkt_power", {}, (superstep_tile, serial_tail_csr)),
     ("chunked rmat-er", "rmat-er", dict(coarsen_lanes=65536), (superstep_tile,)),
     ("fused rmat-er", "rmat-er", dict(mode="fused"), (superstep_csr,)),
 ]
@@ -868,9 +1040,12 @@ def kernel_times(g, dev_cuda, lat: dict, plain: bool) -> dict:
     """K1 per class at the first real superstep's inputs (every vertex
     colored 1, after the bootstrap identity), and K2 at the stall tail's
     inputs (all n vertices in ``order_tail`` order): CUDA-event times,
-    byte bounds (K2: also its depth and depth bound, and each layout
-    forced) and, with ``plain``, the plain versions' CPU times and a
-    bit-for-bit check at these shapes."""
+    byte bounds (K1: counted as ``k3_words`` does, one packed word a
+    vertex; K2: also its depth and depth bound, and each layout forced)
+    and, with ``plain``, the plain versions' CPU times and a bit-for-bit
+    check at these shapes. K1 is also timed in each layout forced and
+    beside K3 over the same CSR rows with colours and degrees apart
+    (source (d)), all bit-identical."""
     gpu = DeviceCSR.from_csr(g, dev_cuda)
     deg_np = np.concatenate([g.degrees, [0]]).astype(np.int64)
     colors = torch.ones(g.n + 1, dtype=torch.int32, device=dev_cuda)
@@ -880,19 +1055,38 @@ def kernel_times(g, dev_cuda, lat: dict, plain: bool) -> dict:
     k1 = []
     for cls, W in zip(classes, widths):
         wl = torch.from_numpy(cls).to(dev_cuda)
-        ms = event_ms(lambda: superstep_csr(gpu.row_starts, gpu.col_padded,
-                                            packed, wl, W), reps=10, warm=2)
-        rec = {"W": W, "w": int(cls.size), "ms": ms,
-               "bound_ms": bound_ms(deg_np, cls, W, 24)}
+        source, _ = gpu.lane_source(W)
+
+        def run(lanes=None):
+            return superstep_csr(gpu.row_starts, gpu.col_padded, packed, wl, W,
+                                 lanes=lanes)
+
+        def run_d(lanes=None):
+            return superstep_rows(colors, gpu.deg_ext, wl, source=source, W=W, lanes=lanes)
+
+        want = run()
+        words = k3_words(source, wl, colors, gpu.deg_ext, W)
+        rec = {"W": W, "w": int(cls.size), "lanes": row_lanes(W),
+               "ms": event_ms(run, reps=10, warm=2),
+               # K1 reads one packed word a vertex: no degree words apart
+               "bound_ms": 4 * (words["total"] - words["degrees"] - int(cls.size))
+               / HBM_BYTES_PER_S * 1e3,
+               "gather_ms": words["lanes"] / lat["gather_per_s"] * 1e3,
+               "csr_ms": event_ms(run_d, reps=10, warm=2), "words": words}
+        if not all(torch.equal(a, b) for a, b in zip(run_d(), want)):
+            fail(f"K1 over packed words differs from K3 over CSR rows at W={W}")
+        for lanes in ROW_LANES:
+            rec[f"lanes{lanes}_ms"] = event_ms(lambda: run(lanes), reps=5, warm=1)
+            if not all(torch.equal(a, b) for a, b in zip(run(lanes), want)):
+                fail(f"K1 lanes={lanes} differs from the default layout at W={W}")
         if plain:
-            got = superstep_csr(gpu.row_starts, gpu.col_padded, packed, wl, W)
             t = time.perf_counter()
-            want = superstep_csr_ref(gpu.row_starts.cpu(), gpu.col_padded.cpu(),
-                                     packed.cpu(), wl.cpu(), W)
+            ref = superstep_csr_ref(gpu.row_starts.cpu(), gpu.col_padded.cpu(),
+                                    packed.cpu(), wl.cpu(), W)
             rec["plain_ms"] = (time.perf_counter() - t) * 1e3
             rec["max_abs_err"] = max(
-                int((want[0] - got[0].cpu()).abs().max()),
-                int((want[1].int() - got[1].cpu().int()).abs().max()))
+                int((ref[0] - want[0].cpu()).abs().max()),
+                int((ref[1].int() - want[1].cpu().int()).abs().max()))
             if rec["max_abs_err"]:
                 fail(f"K1 differs from its plain version at W={W}, w={cls.size}")
         k1.append(rec)
@@ -906,7 +1100,7 @@ def kernel_times(g, dev_cuda, lat: dict, plain: bool) -> dict:
           "ms": event_ms(lambda: serial_tail_csr(
               gpu.row_starts, gpu.col_padded, gpu.deg_ext, work, tail, W),
               reps=3, warm=1),
-          **k2_bound(bound_ms(deg_np, tail_np, W, 20), depth, lat)}
+          **k2_bound(bound_ms(deg_np, tail_np, W), depth, lat)}
     # each layout forced, at the same inputs: they must agree
     starts = gpu.row_starts[tail.clamp(0, g.n - 1)]
     degs = gpu.deg_ext[tail]
@@ -946,11 +1140,6 @@ def tile_bound_ms(w: int, W: int, same_lanes: int | None = None,
     return 4 * words / HBM_BYTES_PER_S * 1e3
 
 
-def count_same_lanes(my_c, nc) -> int:
-    """Lanes whose neighbour holds the row's nonzero colour."""
-    return int(((nc == my_c[:, None]) & (my_c[:, None] > 0)).sum())
-
-
 def plain_check(name: str, want, got, shape) -> tuple[float, int]:
     """(plain ms, max |kernel - plain|) with the plain result computed by
     ``want()``; fails unless they are equal."""
@@ -966,32 +1155,125 @@ def plain_check(name: str, want, got, shape) -> tuple[float, int]:
     return plain_ms, err
 
 
-def k3_times(provider, deg_ext, classes, widths, dev_cuda, plain: bool) -> list:
-    """K3 per class at the first real superstep's inputs (every vertex
-    colored 1, after the bootstrap identity): CUDA-event times, byte bounds
-    and, with ``plain``, the plain version's CPU time and a bit-for-bit
-    check at these shapes."""
+def lanes_read(source, ids, deg_ext, n: int, W: int):
+    """``(row, lane, table_words)``: for each lane K3 reads over ``source``
+    (each row up to its degree, each hop up to its own), its row's index in
+    ``ids`` and its neighbour id, both int64 on the card, and the words of
+    the table, R and C, or both hops' ids and degrees those reads take."""
+    w = ids.shape[0]
+    real = ids < n
+    safe = ids.clamp(0, max(n - 1, 0)).long()
+
+    def expand(length):
+        rows = torch.repeat_interleave(torch.arange(w, device=ids.device), length)
+        starts = torch.cumsum(length, 0) - length
+        return rows, torch.arange(rows.numel(), device=ids.device) - starts[rows]
+
+    if isinstance(source, TableRows):
+        length = torch.where(real, deg_ext[safe].long().clamp(max=W), 0)
+        rows, j = expand(length)
+        return rows, source.table[safe[rows], j].long(), int(length.sum())
+    if isinstance(source, CsrRows):
+        s = source.row_starts[safe].long()
+        length = torch.where(real, (source.row_starts[safe + 1].long() - s).clamp(max=W), 0)
+        rows, j = expand(length)
+        return rows, source.col[s[rows] + j].long(), int(length.sum()) + 2 * w
+    a, b = source.adj_a, source.adj_b
+    n_rows, n_mid, W1, W2 = a.shape[0], b.shape[0], a.shape[1], b.shape[1]
+    lidx = ids.long() - source.start
+    row = lidx.clamp(0, n_rows - 1)
+    length = torch.where(real & (lidx < n_rows), source.deg_a[row].long().clamp(max=W1), 0)
+    rows1, j1 = expand(length)
+    mids = a[row[rows1], j1].long()
+    len2 = torch.where(mids < n_mid, source.deg_b[mids.clamp(max=n_mid - 1)].long()
+                       .clamp(max=W2), 0)
+    rep = torch.repeat_interleave(torch.arange(mids.numel(), device=ids.device), len2)
+    j2 = torch.arange(rep.numel(), device=ids.device) - (torch.cumsum(len2, 0) - len2)[rep]
+    lanes2 = b[mids[rep], j2].long()
+    words = 2 * int(mids.numel()) + int(rep.numel()) + w  # hop-1 ids and deg_b, deg_a
+    if source.include_first_hop:
+        return torch.cat([rows1, rows1[rep]]), torch.cat([mids, lanes2]), words
+    return rows1[rep], lanes2, words
+
+
+def k3_words(source, ids, colors, deg_ext, W: int) -> dict:
+    """The int32 words K3 must move over ``source`` at these inputs, each
+    read once: the ids, their colours and degrees, the table (or R and C,
+    or both hops' ids and degrees) words it reads, the colour of each
+    distinct neighbour on them, the degree of each distinct neighbour on a
+    lane that holds its row's nonzero colour, and two outputs a row.
+    Counted on the card. ``lanes`` and ``match`` (lanes read, lanes that
+    match) give the random reads at the gather probe's rate."""
+    n = colors.shape[0] - 1
+    w = int(ids.shape[0])
+    rows, lane, table_words = lanes_read(source, ids, deg_ext, n, W)
+    my_c = colors[ids.long()][rows]
+    match = (colors[lane] == my_c) & (my_c > 0)
+    out = {"lanes": int(lane.numel()), "match": int(match.sum()),
+           "colours": int(torch.unique(lane[lane < n]).numel()),
+           "degrees": int(torch.unique(lane[match]).numel()),
+           "table": table_words}
+    out["total"] = 3 * w + table_words + out["colours"] + out["degrees"] + 2 * w
+    return out
+
+
+def k3_times(provider, deg_ext, classes, widths, dev_cuda, lat: dict, plain: bool,
+             plain_cells: int = 2**26, old_cells: int = 2**30) -> list:
+    """K3 per class, rows read in place (``superstep_rows`` over
+    ``provider.lane_source``), at the first real superstep's inputs (every
+    vertex colored 1, after the bootstrap identity): CUDA-event time, the
+    bound (``k3_words``), the lanes' random reads at the probe's rate;
+    where the class's tile has at most ``old_cells`` cells the old path
+    (``provider.rows`` and the four gathers, then the tile entry point in
+    the warp layout), its kernel alone, both checked equal; with ``plain``
+    the plain version's CPU time and a bit-for-bit check on the first rows
+    of the class whose tile has at most ``plain_cells`` cells."""
     n = deg_ext.shape[0] - 1
     colors = torch.ones(n + 1, dtype=torch.int32, device=dev_cuda)
     colors[n] = 0
     out = []
-    for cls, W in zip(classes, widths):
+    for cls, width in zip(classes, widths):
         ids = torch.from_numpy(cls).to(dev_cuda)
-        rows = provider.rows(ids, W)
-        W = int(rows.shape[1])
-        args = (ids, rows, colors[ids.long()], colors[rows.long()],
-                deg_ext[ids.long()], deg_ext[rows.long()])
-        rec = {"W": W, "w": int(cls.size),
-               "ms": event_ms(lambda: superstep_tile(*args), reps=10, warm=2),
-               "bound_ms": tile_bound_ms(cls.size, W, count_same_lanes(args[2], args[3]),
-                                         outs=2)}
+        source, W = provider.lane_source(width)
+        w = int(cls.size)
+
+        def run():
+            return superstep_rows(colors, deg_ext, ids, source=source, W=W)
+
+        want = run()
+        words = k3_words(source, ids, colors, deg_ext, W)
+        rec = {"W": W, "w": w, "lanes": row_lanes(W),
+               "ms": event_ms(run, reps=10, warm=2),
+               "bound_ms": 4 * words["total"] / HBM_BYTES_PER_S * 1e3,
+               "gather_ms": (words["lanes"] + words["match"]) / lat["gather_per_s"] * 1e3,
+               "words": words}
+        if w * W <= old_cells:
+            def old():
+                rows = provider.rows(ids, width)
+                idx, ridx = ids.long(), rows.long()
+                return superstep_tile(ids, rows, colors[idx], colors[ridx], deg_ext[idx],
+                                      deg_ext[ridx], lanes=32)
+
+            if not all(torch.equal(a, b) for a, b in zip(old(), want)):
+                fail(f"K3 in place differs from the old path at W={W}, w={w}")
+            rec["tile_ms"] = event_ms(old, reps=3, warm=1)
+            rows = provider.rows(ids, width)
+            idx, ridx = ids.long(), rows.long()
+            args = (ids, rows, colors[idx], colors[ridx], deg_ext[idx], deg_ext[ridx])
+            del ridx
+            rec["tile_kernel_ms"] = event_ms(lambda: superstep_tile(*args, lanes=32), reps=3)
+            del args, rows
+            torch.cuda.empty_cache()
         if plain:
-            cpu = [a.cpu() for a in args]
+            k = max(1, min(w, plain_cells // W))
+            cpu_src = to_device(source, "cpu")
             rec["plain_ms"], rec["max_abs_err"] = plain_check(
-                "K3", lambda: superstep_tile_ref(*cpu), superstep_tile(*args),
-                (cls.size, W))
+                "K3", lambda: superstep_rows_ref(colors.cpu(), deg_ext.cpu(), ids[:k].cpu(),
+                                                 source=cpu_src, W=W),
+                tuple(x[:k] for x in want), (k, W))
+            rec["plain_rows"] = k
+            del cpu_src
         out.append(rec)
-        del args, rows
     return out
 
 
@@ -1187,13 +1469,34 @@ def no_tile_gathers():
     return mock.patch.object(core_coloring, "gather_rows", refuse)
 
 
+@contextlib.contextmanager
+def no_superstep_gathers():
+    """A context in which every ``ragged_superstep`` call makes its
+    provider's ``rows`` and ``core.coloring.gather_rows`` raise: on the card
+    K1 and K3 read the rows in place. The composed tail's K2 segments
+    (outside the superstep) may still gather."""
+    real = core_coloring.ragged_superstep
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the superstep gathered a (w, W) tile on the card")
+
+    def guarded(provider, *args, **kwargs):
+        with mock.patch.object(provider, "rows", refuse), \
+                mock.patch.object(core_coloring, "gather_rows", refuse):
+            return real(provider, *args, **kwargs)
+
+    with mock.patch.object(core_coloring, "ragged_superstep", guarded):
+        yield
+
+
 def run_full(label, call, kernels, valid, reps: int = 3, what: str = "",
-             gathers: bool = True) -> dict:
-    """One main path at full size: the counted run of ``call()`` (with
-    ``gathers=False`` inside ``no_tile_gathers``), then ``reps`` timed runs
-    (after the counted one, which warms up) and a profiled one."""
+             guard=no_superstep_gathers) -> dict:
+    """One main path at full size: the counted run of ``call()`` inside
+    ``guard()`` (no tile gathered), then ``reps`` timed runs (after the
+    counted one, which warms up) and a profiled one. Prints the allocator's
+    allocations and retries over the timed runs (``torch.cuda.memory_stats``)."""
     reset_counts()
-    with contextlib.nullcontext() if gathers else no_tile_gathers():
+    with guard():
         r = call()  # the main path's counted run
     counts = {k.__name__: k.launches for k in KERNELS}
     for k in kernels:
@@ -1202,6 +1505,7 @@ def run_full(label, call, kernels, valid, reps: int = 3, what: str = "",
     if not valid(r.colors):
         fail(f"full {label}: coloring is not valid")
     walls, peaks, held = [], [], torch.cuda.memory_allocated()
+    before = torch.cuda.memory_stats()
     for _ in range(reps):
         torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
@@ -1211,23 +1515,39 @@ def run_full(label, call, kernels, valid, reps: int = 3, what: str = "",
         peaks.append(torch.cuda.max_memory_allocated())
         if not np.array_equal(again.colors, r.colors):
             fail(f"full {label}: a repeated run gave other colors")
+    after = torch.cuda.memory_stats()
+    allocs = (after.get("allocation.all.allocated", 0)
+              - before.get("allocation.all.allocated", 0)) / reps
+    retries = after.get("num_alloc_retries", 0) - before.get("num_alloc_retries", 0)
     print(f"full {label} {what}: iters={r.iterations} colors={r.num_colors} "
           f"converged={r.converged} class_cells={r.class_cells}", flush=True)
     print(f"  call: median {statistics.median(walls):.3f} ms of "
           f"{[round(w, 3) for w in walls]}, peak device memory "
           f"{max(peaks) / 2**20:.1f} MiB ({(max(peaks) - held) / 2**20:.1f} MiB above the "
           f"{held / 2**20:.1f} MiB held before the call), launches "
-          f"{ {k: c for k, c in counts.items() if c} }")
+          f"{ {k: c for k, c in counts.items() if c} }; allocations a call {allocs:.0f}, "
+          f"allocator retries {retries}")
     profile_call(call)
     return {"result": r, "counts": counts}
 
 
 def print_tile_recs(name: str, recs: list):
     for rec in recs:
-        print(f"  {name} W={rec['W']:5d} w={rec['w']:8d}: {rec['ms']:.4f} ms "
-              f"(bound {rec['bound_ms']:.4f} ms)"
-              + (f", plain {rec['plain_ms']:.1f} ms" if "plain_ms" in rec else ""),
-              flush=True)
+        extra = ""
+        if "csr_ms" in rec:
+            layouts = " / ".join(f"{rec[f'lanes{k}_ms']:.4f}" for k in ROW_LANES)
+            extra += (f"; forced {'/'.join(map(str, ROW_LANES))}: {layouts}; K3 over "
+                      f"the same CSR rows, colours and degrees apart {rec['csr_ms']:.4f}")
+        if "tile_ms" in rec:
+            extra += (f"; old path (gathers + tile kernel, warp layout) "
+                      f"{rec['tile_ms']:.4f} ms, its kernel {rec['tile_kernel_ms']:.4f}")
+        if "plain_ms" in rec:
+            extra += f"; plain {rec['plain_ms']:.1f} ms" + (
+                f" on the first {rec['plain_rows']} rows" if "plain_rows" in rec else "")
+        print(f"  {name} W={rec['W']:6d} w={rec['w']:8d}: {rec['ms']:.4f} ms (lanes "
+              f"{rec['lanes']}), bound {rec['bound_ms']:.4f} ms (random gathers at the "
+              f"probe's rate {rec['gather_ms']:.4f}){extra}", flush=True)
+        print(f"    words counted for the bound: {rec['words']}", flush=True)
 
 
 def check_full(dev_cuda, lat: dict) -> dict:
@@ -1243,7 +1563,8 @@ def check_full(dev_cuda, lat: dict) -> dict:
         g = graphs[name]
         out = run_full(label, lambda: color(g, device=dev_cuda, **opts), kernels,
                        lambda c: is_valid_coloring(g, c), what=str(opts),
-                       gathers=not label.startswith("classic"))
+                       guard=(no_tile_gathers if label.startswith("classic")
+                              else no_superstep_gathers))
         for k, c in out["counts"].items():
             totals[k] += c
         r = out["result"]
@@ -1283,7 +1604,7 @@ def check_full(dev_cuda, lat: dict) -> dict:
             else:
                 provider = csr
             times[label] = recs = k3_times(provider, csr.deg_ext, classes,
-                                           widths, dev_cuda, plain=plain)
+                                           widths, dev_cuda, lat, plain=plain)
             print_tile_recs("K3", recs)
             del provider
         torch.cuda.empty_cache()
@@ -1499,6 +1820,27 @@ def composed_tail_times(prov, degrees: np.ndarray, dev_cuda, lat: dict,
     return rec
 
 
+def two_hop_k3_times(g, dev_cuda, lat: dict, plain: bool) -> list:
+    """K3 at the first real superstep of ``distance2`` (a ``CSRGraph``) or
+    ``bipartite`` (a ``BipartiteGraph``) on the fly: every vertex colored
+    1, all in one class, over the composed rows the engine's provider
+    reads in place (``k3_times``)."""
+    if hasattr(g, "n_cols"):
+        c2r, r2c = (torch.from_numpy(a).to(dev_cuda) for a in g.padded_halves())
+        deg = torch.from_numpy(np.concatenate([g.col_degrees, [0]]).astype(np.int32))
+        deg = deg.to(dev_cuda)
+        prov = TwoHopRows(c2r, r2c, False)
+        n = g.n_cols
+    else:
+        adj = torch.from_numpy(g.padded_adjacency()).to(dev_cuda)
+        deg = torch.from_numpy(np.concatenate([g.degrees, [0]]).astype(np.int32))
+        deg = deg.to(dev_cuda)
+        prov = TwoHopRows(adj, adj)
+        n = g.n
+    return k3_times(prov, deg, [np.arange(n, dtype=np.int32)], [None], dev_cuda, lat,
+                    plain=plain)
+
+
 def check_d2_full(graphs: dict, dev_cuda, lat: dict) -> dict:
     graphs = dict(graphs)
     t = time.perf_counter()
@@ -1507,14 +1849,18 @@ def check_d2_full(graphs: dict, dev_cuda, lat: dict) -> dict:
     print(f"graph jacobian_band(1<<20, band=3): n_cols={bg.n_cols} "
           f"nnz={bg.nnz} (built in {time.perf_counter() - t:.1f} s)", flush=True)
     totals = {k.__name__: 0 for k in KERNELS}
+    times = {}
     for label, name, opts, kernels in D2_FULL_RUNS:
         g = graphs[name]
         algorithm = "bipartite" if name == "jacobian_band" else "distance2"
         valid = validate_bipartite if algorithm == "bipartite" else validate_d2
         precomputed = opts.get("strategy") == "precomputed"
         if algorithm == "distance2" and not precomputed:
-            print(f"{label}: strategy auto resolves to "
-                  f"{resolve_d2_strategy(g, 'auto', DEFAULT_D2_BUDGET)}", flush=True)
+            t = time.perf_counter()
+            strategy = resolve_d2_strategy(g, "auto", DEFAULT_D2_BUDGET)
+            print(f"{label}: strategy auto resolves to {strategy} (host time of the "
+                  f"pick, inside every call: {(time.perf_counter() - t) * 1e3:.1f} ms)",
+                  flush=True)
         if precomputed:
             t = time.perf_counter()
             g2 = g.square()
@@ -1527,6 +1873,11 @@ def check_d2_full(graphs: dict, dev_cuda, lat: dict) -> dict:
                        what=str(opts))
         for k, c in out["counts"].items():
             totals[k] += c
+        if not precomputed:
+            times[f"k3 {label}"] = recs = two_hop_k3_times(g, dev_cuda, lat,
+                                                           plain=name == "rmat-er")
+            print_tile_recs("K3 first step, composed rows in place", recs)
+            torch.cuda.empty_cache()
         if algorithm == "bipartite":
             t = time.perf_counter()
             cr = compress_jacobian_pattern(g, device=dev_cuda)
@@ -1546,7 +1897,7 @@ def check_d2_full(graphs: dict, dev_cuda, lat: dict) -> dict:
     for k, c in out["counts"].items():
         totals[k] += c
     torch.cuda.empty_cache()
-    times = {"k6": k6_times(g, dev_cuda, plain_rows=65536)}
+    times["k6"] = k6_times(g, dev_cuda, plain_rows=65536)
     torch.cuda.empty_cache()
     times["k5 d2"] = d2_k5_times(g, dev_cuda, lat, plain_rows=65536)
     torch.cuda.empty_cache()
@@ -1572,9 +1923,9 @@ def kernels_record(full: dict) -> list:
     counted runs (distance-1 and distance-2), times and bounds at their
     shapes on rmat-er (K1: mean per launch over the first superstep's
     classes; K2: the stall tail over all n vertices; K3: mean per launch
-    over the padded engine's first-superstep classes; K4 and K5: the
-    classic engine's first step, rows read in place; K6: ``d2_sgr_step``'s
-    FirstFit over all n after one step)."""
+    over the padded engine's first-superstep classes, rows read in place;
+    K4 and K5: the classic engine's first step, rows read in place; K6:
+    ``d2_sgr_step``'s FirstFit over all n after one step)."""
     t = full["times"]
     k1, k2 = t["ragged rmat-er"]["k1"], t["ragged rmat-er"]["k2"]
     k3 = t["padded rmat-er"]
@@ -1595,7 +1946,7 @@ def kernels_record(full: dict) -> list:
     tile_src = "src/repro_torch/csrc/tile_kernels.cu"
     d2_src = "src/repro_torch/csrc/d2_kernels.cu"
     return [
-        entry("superstep_csr", csr_src,
+        entry("superstep_csr", tile_src,
               "src/repro/kernels/superstep/csr_kernel.py:62", k1),
         entry("serial_tail_csr", csr_src,
               "src/repro/kernels/superstep/csr_kernel.py:223", [k2]),

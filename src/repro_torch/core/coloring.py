@@ -63,6 +63,7 @@ from repro_torch.core.heuristics import (
 )
 from repro_torch.ingest import PACKED_GATHER_MAX_DEG, packed_gather_ok
 from repro_torch.kernels.conflict.kernel import conflict_rows
+from repro_torch.kernels.cuda import TableRows
 from repro_torch.kernels.dispatch import resolve_backend
 from repro_torch.kernels.firstfit.kernel import firstfit_rows
 from repro_torch.kernels.superstep.csr_kernel import (
@@ -70,7 +71,7 @@ from repro_torch.kernels.superstep.csr_kernel import (
     serial_tail_rows,
     superstep_csr,
 )
-from repro_torch.kernels.superstep.kernel import superstep_tile
+from repro_torch.kernels.superstep.kernel import superstep_rows
 
 __all__ = [
     "ColoringResult",
@@ -231,17 +232,20 @@ def ragged_superstep(provider, deg_ext, colors_ext, wl, *,
                      pack_degrees: bool = False, width: int | None = None):
     """One rotated super-step: ConflictResolve + FirstFit + compaction.
 
-    ``provider.rows(ids, width)`` gives the sentinel-padded ``(w, W)``
-    neighbor tile (a ``DeviceCSR`` class gather or a ``DenseRows`` dense
-    gather).  ``coarsen`` chunks the worklist; later chunks read earlier
-    chunks' writes.  ``colors_read`` is the snapshot the first chunk reads
-    (the iteration-start colors when several classes share a super-step).
+    ``provider`` serves each worklist id's sentinel-padded row of width
+    ``W``: a ``DeviceCSR`` (cut to the class ``width``), a ``DenseRows``
+    dense table or a composed ``TwoHopRows``.  ``coarsen`` chunks the
+    worklist; later chunks read earlier chunks' writes.  ``colors_read`` is
+    the snapshot the first chunk reads (the iteration-start colors when
+    several classes share a super-step).
 
     An unchunked step over a ``DeviceCSR`` with ``pack_degrees`` is one K1
-    launch over the packed ``color | deg << 16`` words.  Every other step
-    gathers the tiles and, on the card, launches K3 per chunk; on the CPU it
-    runs ``repro``'s formulation with FirstFit ``kind``.  Updates
-    ``colors_ext`` in place.
+    launch over the packed ``color | deg << 16`` words.  On the card every
+    other step is one K3 launch a chunk over ``provider.lane_source``'s
+    rows, read by id where they lie with the colours read in place: no
+    tile is gathered.  On the CPU it gathers ``provider.rows(ids, width)``
+    and runs ``repro``'s formulation with FirstFit ``kind``.  Updates
+    ``colors_ext`` in place, after each launch, from its ``(w,)`` outputs.
     """
     n = colors_ext.shape[0] - 1
     read = colors_ext if colors_read is None else colors_read
@@ -249,6 +253,9 @@ def ragged_superstep(provider, deg_ext, colors_ext, wl, *,
     # the packed words would have to track earlier chunks' writes
     use_csr = (pack_degrees and len(chunk_bounds) == 1
                and isinstance(provider, DeviceCSR))
+    on_card = _on_card(wl)
+    if on_card and not use_csr:
+        source, W = provider.lane_source(width)
     need_parts = []
     for lo, hi in chunk_bounds:
         ids = wl[lo:hi]
@@ -257,21 +264,20 @@ def ragged_superstep(provider, deg_ext, colors_ext, wl, *,
             new_c, need = superstep_csr(
                 provider.row_starts, provider.col_padded, packed, ids,
                 provider.max_width if width is None else width, heuristic)
+        elif on_card:
+            new_c, need = superstep_rows(read, deg_ext, ids, heuristic,
+                                         source=source, W=W)
         else:
             rows = provider.rows(ids, width)
             idx, ridx = ids.long(), rows.long()
             my_c, nc = read[idx], read[ridx]
             my_d, nd = deg_ext[idx], deg_ext[ridx]
-            if _on_card(ids):
-                new_c, need = superstep_tile(ids, rows, my_c, nc, my_d, nd,
-                                             heuristic)
-            else:
-                same, lose_lane = conflict_lose_lanes(ids, rows, my_c, nc,
-                                                      my_d, nd, heuristic)
-                need = lose_lane.any(dim=1) | (my_c == 0)
-                # lanes I beat are provably recoloring too: refit as cleared
-                ff_nc = torch.where(same & ~lose_lane, 0, nc)
-                new_c = torch.where(need, FF_FUNCS[kind](ff_nc), my_c)
+            same, lose_lane = conflict_lose_lanes(ids, rows, my_c, nc,
+                                                  my_d, nd, heuristic)
+            need = lose_lane.any(dim=1) | (my_c == 0)
+            # lanes I beat are provably recoloring too: refit as cleared
+            ff_nc = torch.where(same & ~lose_lane, 0, nc)
+            new_c = torch.where(need, FF_FUNCS[kind](ff_nc), my_c)
         valid = ids < n
         need_parts.append(need & valid)
         colors_ext[ids.long()] = torch.where(valid, new_c, 0).to(torch.int32)
@@ -356,11 +362,12 @@ def _class_cells(acc_widths, cells_k, tail_width: int, tail_cells: int):
 class DenseRows:
     """Dense padded-adjacency row provider (the ``padded`` engine layout).
 
-    ``rows``/``row1`` mirror the ``DeviceCSR`` provider protocol; ``width``
-    requests are ignored — a dense table always gathers its full (Δmax)
-    width, which is the bandwidth difference the engines A/B.  ``csr`` is
-    the same graph's ``DeviceCSR``: the serial tail reads it (see
-    ``_dispatch_tail``).
+    ``rows``/``row1``/``lane_source`` mirror the ``DeviceCSR`` provider
+    protocol; ``width`` requests are ignored — a dense table always serves
+    its full (Δmax) width, which is the bandwidth difference the engines
+    A/B (on the card K3 reads each row up to its degree, which changes no
+    answer: the table pads with the sentinel).  ``csr`` is the same graph's
+    ``DeviceCSR``: the serial tail reads it (see ``_dispatch_tail``).
     """
 
     def __init__(self, adj: torch.Tensor, csr: DeviceCSR,
@@ -372,6 +379,10 @@ class DenseRows:
     @property
     def device(self) -> torch.device:
         return self.adj.device
+
+    def lane_source(self, width: int | None = None):
+        """``(source, W)``: the table by id (``TableRows``) and its width."""
+        return TableRows(self.adj), int(self.adj.shape[1])
 
     def rows(self, ids, width: int | None = None):
         return gather_rows(self.adj, ids, self.sentinel)

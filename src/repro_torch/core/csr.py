@@ -20,12 +20,15 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.kernels.cuda import CsrRows
+
 __all__ = [
     "CSRGraph",
     "DeviceCSR",
     "auto_tile_thresholds",
     "compose_pairs",
     "csr_from_edges",
+    "csr_tile",
     "gather_rows",
     "next_pow2",
     "padded_ragged",
@@ -173,6 +176,21 @@ def gather_rows(adj: torch.Tensor, ids: torch.Tensor, sentinel: int | None = Non
     return torch.where((ids < n)[:, None], rows, fill)
 
 
+def csr_tile(row_starts: torch.Tensor, col: torch.Tensor, ids: torch.Tensor,
+             width: int) -> torch.Tensor:
+    """The ``(w, width)`` id tile of CSR rows: row ``v``'s first
+    ``min(R[v+1] - R[v], width)`` ids of ``col``, the sentinel ``n`` past
+    them and in the rows of ids ``>= n``.  Reads are clamped into ``col``,
+    as JAX clamps gathers."""
+    n = row_starts.shape[0] - 1
+    safe = ids.clamp(0, max(n - 1, 0)).long()
+    starts = row_starts[safe]
+    length = torch.where(ids < n, row_starts[safe + 1] - starts, 0)
+    lane = torch.arange(width, dtype=torch.int32, device=ids.device)[None, :]
+    idx = (starts[:, None] + lane).clamp(max=col.shape[0] - 1)
+    return torch.where(lane < length[:, None], col[idx.long()], n)
+
+
 def compose_pairs(
     row_offsets_a: np.ndarray,
     col_indices_a: np.ndarray,
@@ -299,7 +317,13 @@ class DeviceCSR:
             w,
         )
 
-    # row-provider protocol of the engine: rows / row1
+    # row-provider protocol of the engine: rows / row1 / lane_source
+    def lane_source(self, width: int | None = None):
+        """``(source, W)``: where K3 reads a row on the card (``CsrRows``,
+        each row cut to ``W`` lanes) and the row width."""
+        return (CsrRows(self.row_starts, self.col_padded),
+                self.max_width if width is None else int(width))
+
     def rows(self, ids, width: int | None = None):
         return self.gather_rows(ids, self.max_width if width is None else width)
 
@@ -312,15 +336,7 @@ class DeviceCSR:
         ``width`` must cover every gathered vertex's degree; narrower widths
         would silently truncate adjacency.
         """
-        n = self.n
-        safe = ids.clamp(0, max(n - 1, 0)).long()
-        starts = self.row_starts[safe]
-        deg = self.deg_ext[safe]
-        lane = torch.arange(width, dtype=torch.int32, device=ids.device)[None, :]
-        idx = (starts[:, None] + lane).clamp(max=self.col_padded.shape[0] - 1)
-        rows = self.col_padded[idx.long()]  # clamped as JAX clamps gathers
-        valid = (lane < deg[:, None]) & (ids < n)[:, None]
-        return torch.where(valid, rows, n)
+        return csr_tile(self.row_starts, self.col_padded, ids, width)
 
     def gather_row1(self, v: int, width: int | None = None) -> torch.Tensor:
         """One vertex's sentinel-padded ``(width,)`` neighbor row.

@@ -1,6 +1,6 @@
 // What the port's kernels share: the loser rule of K1, K3 and K5, the
 // FirstFit of K1, K2, K3, K4 and K6, a warp's or a lane group's
-// (superstep_csr.cu, tile_kernels.cu, d2_kernels.cu), and the pieces every
+// (tile_kernels.cu, superstep_csr.cu, d2_kernels.cu), and the pieces every
 // kernel library has. Each csrc/*.cu builds into a library of its own
 // (repro_torch/kernels/build.py), so the extern "C" function below is
 // defined once per library.
@@ -40,28 +40,29 @@ __host__ __device__ __forceinline__ int bitset_words(int W) {
   return (W + 1 + 31) >> 5;
 }
 
-// Smallest colour in [1, W+1] absent from { color_of(j) : 0 <= j < d }, for
-// a group of G lanes (G divides 32) sharing one row: `glane` is a lane's
-// index in the group and `gmask` the group's lanes in the warp. `m` is the
-// group-reduced mask of colours 1..32 already seen. The group's lanes call
-// this together and all get the answer; other groups of the warp may take
-// other branches. `words` is the group's scratch bitset of bitset_words(W)
-// words; only words 1.. are used, and only when colours 1..32 are all
-// taken. Needs d <= W, so a free colour exists.
-template <int G, class ColorOf>
-__device__ __forceinline__ int first_fit_group(unsigned m, const ColorOf& color_of,
-                                               int d, int W, unsigned* words,
-                                               int glane, unsigned gmask) {
+// Smallest colour in [1, W+1] absent from the colours a row's lanes show,
+// for a group of G lanes (G divides 32) sharing one row: `glane` is a
+// lane's index in the group and `gmask` the group's lanes in the warp. `m`
+// is the group-reduced mask of colours 1..32 already seen. `visit(mark)`
+// calls mark(c) once for each colour c of this lane's share of the row, in
+// any order (the lanes of the group together cover the row). The group's
+// lanes call this together and all get the answer; other groups of the
+// warp may take other branches. `words` is the group's scratch bitset of
+// bitset_words(W) words; only words 1.. are used, and only when colours
+// 1..32 are all taken. Needs a row of at most W lanes, so a free colour
+// exists.
+template <int G, class Visit>
+__device__ __forceinline__ int first_fit_visit(unsigned m, const Visit& visit, int W,
+                                               unsigned* words, int glane, unsigned gmask) {
   const unsigned cand0 = W >= 31 ? kFull : ((1u << (W + 1)) - 1u);
   const unsigned free0 = ~m & cand0;
   if (free0) return __ffs(free0);
   const int nwords = bitset_words(W);
   for (int k = 1 + glane; k < nwords; k += G) words[k] = 0u;
   __syncwarp(gmask);
-  for (int j = glane; j < d; j += G) {
-    const int c = color_of(j);
+  visit([&](int c) {
     if (c > 32 && c <= W + 1) atomicOr(&words[(c - 1) >> 5], 1u << ((c - 1) & 31));
-  }
+  });
   __syncwarp(gmask);
   int best = INT_MAX;
   for (int k = 1 + glane; k < nwords; k += G) {
@@ -75,7 +76,21 @@ __device__ __forceinline__ int first_fit_group(unsigned m, const ColorOf& color_
   return best + 1;
 }
 
-// first_fit_group for a whole warp sharing one row (K1, K2, K3, K6).
+// first_fit_visit over the lanes j = glane, glane + G, ... < d of a flat
+// row, lane j showing colour color_of(j).
+template <int G, class ColorOf>
+__device__ __forceinline__ int first_fit_group(unsigned m, const ColorOf& color_of,
+                                               int d, int W, unsigned* words,
+                                               int glane, unsigned gmask) {
+  return first_fit_visit<G>(
+      m,
+      [&](const auto& mark) {
+        for (int j = glane; j < d; j += G) mark(color_of(j));
+      },
+      W, words, glane, gmask);
+}
+
+// first_fit_group for a whole warp sharing one row (K2, K6).
 template <class ColorOf>
 __device__ __forceinline__ int first_fit(unsigned m, const ColorOf& color_of,
                                          int d, int W, unsigned* words) {

@@ -1,47 +1,14 @@
-// CSR-resident superstep (K1) and serial tail (K2) for Hopper (sm_90a).
+// The serial tail (K2) for Hopper (sm_90a).
 //
 // Plain C interface, loaded with ctypes by
 // repro_torch/kernels/superstep/csr_kernel.py. Every array is int32. A kernel
 // launches on the caller's stream, never synchronises and allocates nothing;
 // each launcher returns cudaGetLastError() so the wrapper can raise.
 //
-// ---------------------------------------------------------------------------
-// K1 superstep_csr_kernel
-//   Replaces src/repro/kernels/superstep/csr_kernel.py:superstep_csr_kernel
-//   (the Pallas CSR-resident rotated superstep).
-//   For each worklist id v: read v's row of C straight from CSR storage,
-//   decide conflicts on the packed words (color | deg << 16) of v and its
-//   neighbours, treat the neighbours v beats as colour 0, and FirstFit the
-//   smallest colour in [1, W+1] (W = the class width, not v's degree).
-//   Writes (need ? ff : color(v), need). It reads `packed` and never writes
-//   it: every class of a superstep reads the same iteration-start snapshot.
-//
-//   Bound on the card: bytes. Per worklist entry it reads wl, R[v], R[v+1]
-//   and packed[v] and writes two words (24 B); per neighbour it reads C and
-//   packed[u] (8 B), scattered. Operations per byte are a handful of
-//   integer ops, far below the card's ratio.
-//
-//   Design: one warp per worklist vertex, lanes striding over the row, so a
-//   row's C reads coalesce and the packed[u] gathers of a row are in flight
-//   together. The loser test runs per lane and __any_sync reduces `need`.
-//   FirstFit is common.cuh's (shared with K2, K3 and K4): colours 1..32
-//   in a per-lane register mask OR-reduced across the warp
-//   (__reduce_or_sync), __ffs on its complement, and only when all 32 are
-//   taken (W >= 32) a per-warp bitset of (W+1+31)/32 words in shared
-//   memory. So any W up to PACKED_GATHER_MAX_DEG - 1 = 32766 works (at
-//   most 1024 words a warp).
-//
-//   Sentinels: worklists are padded with n; packed[n] == 0, so a sentinel
-//   has degree 0 and colour 0 and reads no row. The caller masks
-//   need &= v < n and writes 0 to slot n, as repro's caller does.
-//   v's row is C[R[v] : R[v+1]], cut to W lanes; lanes past it are inert in
-//   the reference (their colour is 0: never equal to a nonzero colour,
-//   never forbidden), so looping the lanes up to min(R[v+1] - R[v], W)
-//   computes the same thing. The row's length comes from R, not from the
-//   packed degree: over G^2 (distance-2, precomputed) the packed degree is
-//   the original graph's, which the loser rule reads, and the row is G^2's.
-//   (src/repro's Pallas kernel masks at the packed degree and so reads only
-//   the first deg_G(v) lanes of a G^2 row.)
+// K1, the CSR-resident superstep, is the same function as K3 over CSR rows
+// of packed words: it runs as tile_kernels.cu's superstep_rows_kernel over
+// source (e) (repro_superstep_csr there), whose header says what bounds it
+// and how its design answers that.
 //
 // ---------------------------------------------------------------------------
 // K2 serial_tail_csr_kernel
@@ -121,68 +88,11 @@ using repro::first_fit;
 using repro::kFull;
 using repro::low_bit;
 
-constexpr int kWarpsPerBlock = 8;  // K1: one worklist vertex per warp
-
-template <bool kDegreeRule>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-superstep_csr_kernel(const int* __restrict__ wl, const int* __restrict__ row_starts,
-                     const int* __restrict__ col, const int* __restrict__ packed,
-                     int* __restrict__ newc, int* __restrict__ need_out,
-                     int w, int W, int n) {
-  extern __shared__ unsigned smem[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * kWarpsPerBlock + warp;
-  if (i >= w) return;  // whole warps leave together
-  unsigned* words = smem + warp * repro::bitset_words(W);
-
-  const int v = wl[i];
-  const int mypk = packed[v];  // sentinel n -> 0: colour 0, degree 0
-  const int my_c = mypk & 0xFFFF;
-  const int my_d = mypk >> 16;
-  const int start = row_starts[min(v, n - 1)];
-  const int d = v < n ? min(row_starts[v + 1] - start, W) : 0;
-
-  // colour this lane's neighbour shows to FirstFit: neighbours v beats
-  // (same colour, v wins the rule) count as cleared
-  auto refit_color = [&](int u, int upk, bool* lose) {
-    const int nc = upk & 0xFFFF;
-    if (my_c > 0 && nc == my_c) {
-      const int nd = upk >> 16;
-      const bool l = repro::beats<kDegreeRule>(u, nd, v, my_d);
-      *lose = *lose || l;
-      return l ? nc : 0;
-    }
-    return nc;
-  };
-
-  bool lose = false;
-  unsigned m = 0;
-  for (int j = lane; j < d; j += 32) {
-    const int u = col[start + j];
-    m |= low_bit(refit_color(u, packed[u], &lose));
-  }
-  const bool need = __any_sync(kFull, lose) || my_c == 0;
-  int out = my_c;
-  if (need) {
-    m = __reduce_or_sync(kFull, m);
-    bool unused = false;
-    out = first_fit(m, [&](int j) {
-      const int u = col[start + j];
-      return refit_color(u, packed[u], &unused);
-    }, d, W, words);
-  }
-  if (lane == 0) {
-    newc[i] = out;
-    need_out[i] = need ? 1 : 0;
-  }
-}
-
 // ---- K2 ----------------------------------------------------------------
 
 constexpr int kTailThreads = 256;  // per-thread layout: entries a block
 constexpr int kChunk = 8;          // lanes of a row whose loads fly together
-constexpr int kTailWarps = kWarpsPerBlock;  // warp layout: entries a block
+constexpr int kTailWarps = 8;      // warp layout: entries a block
 constexpr unsigned kPollNs = 32;      // first sleep of a waiting entry
 constexpr unsigned kPollMaxNs = 256;  // sleeps double up to this
 constexpr int kMaxPolls = 1 << 26;  // then trap: tens of seconds, never legitimate
@@ -352,28 +262,6 @@ serial_tail_csr_kernel(const int* __restrict__ wl, const int* __restrict__ start
 }  // namespace
 
 extern "C" {
-
-// K1. heuristic: 0 = id rule, 1 = degree rule. Returns a cudaError_t.
-int repro_superstep_csr(const void* wl, const void* row_starts, const void* col,
-                        const void* packed, void* newc, void* need, int w, int W,
-                        int n, int degree_rule, void* stream) {
-  if (w <= 0) return 0;
-  const size_t smem = size_t(kWarpsPerBlock) * repro::bitset_words(W) * sizeof(unsigned);
-  const dim3 grid((w + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  const dim3 block(kWarpsPerBlock * 32);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* a = static_cast<const int*>(wl);
-  const int* r = static_cast<const int*>(row_starts);
-  const int* c = static_cast<const int*>(col);
-  const int* p = static_cast<const int*>(packed);
-  int* o = static_cast<int*>(newc);
-  int* q = static_cast<int*>(need);
-  if (degree_rule)
-    superstep_csr_kernel<true><<<grid, block, smem, st>>>(a, r, c, p, o, q, w, W, n);
-  else
-    superstep_csr_kernel<false><<<grid, block, smem, st>>>(a, r, c, p, o, q, w, W, n);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // K2. Updates colors (n+1) in place; rank (n+1) and a zeroed ticket come
 // from the wrapper, which has cleared the tail's colours. per_thread picks

@@ -1,14 +1,30 @@
-// FirstFit (K4) and conflict (K5) kernels that read their rows where they
-// lie, and the gathered-tile superstep (K3), for Hopper (sm_90a).
+// The row-resident kernels for Hopper (sm_90a): the superstep (K1 and K3,
+// one kernel body), FirstFit (K4) and the conflict test (K5), each reading
+// its rows where they lie.
 //
-// Plain C interface, loaded with ctypes by repro_torch/kernels/firstfit/
-// kernel.py (K4), kernels/conflict/kernel.py (K5) and kernels/superstep/
-// kernel.py (K3). Every array is int32; row offsets are 64-bit. A kernel
-// launches on the caller's stream, never synchronises and allocates
-// nothing; each launcher returns cudaGetLastError() so the wrapper can
-// raise.
+// Plain C interface, loaded with ctypes by repro_torch/kernels/superstep/
+// kernel.py (K3), kernels/superstep/csr_kernel.py (K1), kernels/firstfit/
+// kernel.py (K4) and kernels/conflict/kernel.py (K5). Every array is int32;
+// row offsets are 64-bit. A kernel launches on the caller's stream, never
+// synchronises and allocates nothing; each launcher returns
+// cudaGetLastError() so the wrapper can raise.
 //
 // ---------------------------------------------------------------------------
+// K1 and K3 superstep_rows_kernel
+//   Replaces src/repro/kernels/superstep/kernel.py:superstep_kernel (K3,
+//   over caller-gathered tiles) and src/repro/kernels/superstep/
+//   csr_kernel.py:superstep_csr_kernel (K1, over CSR rows of packed
+//   color | deg << 16 words). One body computes both functions, which are
+//   the same: for row i (vertex v, colour c, degree d), the lanes whose
+//   neighbour u holds c > 0 are tested with K5's rule; v loses when some
+//   such u beats v, and the lanes v beats count as colour 0 (they recolour
+//   too). FirstFit runs in [1, W+1] over the lanes' colours so cleared.
+//   Writes newc = need ? ff : c and need = lose || c == 0. Sentinel
+//   masking (need &= v < n) is the caller's, as in repro. It reads the
+//   colours and never writes them, so every row of a launch sees the same
+//   state (the engine's iteration-start snapshot, or the colours before a
+//   chunk).
+//
 // K4 firstfit_rows_kernel
 //   Replaces src/repro/kernels/firstfit/kernel.py:firstfit_kernel.
 //   out[i] = the smallest colour in [1, W+1] absent from the colours of
@@ -21,96 +37,130 @@
 //   under the degree rule when deg(u) > deg(v), or the degrees are equal
 //   and u < v.
 //
-//   Both run over one of three lane sources (the Pallas kernels take the
-//   third only):
-//   (a) IdLanes<true>: row ids[i] of a table of neighbour ids, rows `stride`
-//       words apart (the classic engine's (n, Δmax) table sliced to a class
-//       width W, so stride = Δmax), read up to min(deg[v], W) lanes: the
-//       table pads every row past its degree with the sentinel n, so the
-//       lanes skipped hold colour 0 and change nothing. Ids >= n read no
-//       lane. Colours come from colors_ext and degrees from deg_ext, both
-//       n + 1 words with the sentinel's 0 in slot n, read in place.
-//   (b) IdLanes<false>: row i of a (w, W) tile of neighbour ids the caller
+// Lane sources (a row's lanes, and how a lane yields its neighbour's id,
+// colour and degree). The Pallas kernels take (c) only; K4 and K5 run over
+// (a)-(c), K3 over (a), (c), (d) and (f), K1 over (e). Colours come from
+// colors_ext and degrees from deg_ext, n + 1 words with the sentinel's 0
+// in slot n, read in place, except where a source says otherwise. Ids >= n
+// read no lane.
+//   (a) IdLanes<kTable>: row ids[i] of a table of neighbour ids, rows
+//       `stride` words apart (the padded engine's (n, Δmax) table, or the
+//       classic engine's sliced to a class width W), read up to
+//       min(deg[v], W) lanes: the table pads every row past its degree with
+//       the sentinel n, so the lanes skipped hold colour 0.
+//   (b) IdLanes<kTile>: row i of a (w, W) tile of neighbour ids the caller
 //       gathered (d2_sgr_step's composed two-hop rows, which may hold self,
-//       duplicate and sentinel lanes), all W lanes, colours and degrees
-//       read as in (a).
+//       duplicate and sentinel lanes), all W lanes.
 //   (c) TileLanes: (w, W) tiles of neighbour ids, colours and degrees and
 //       per row the vertex, its colour and degree, all gathered by the
-//       caller (firstfit_tile, conflict_tile).
+//       caller (the Pallas kernels' signature: superstep_tile,
+//       firstfit_tile, conflict_tile).
+//   (d) IdLanes<kCsr>: row ids[i] of a CSR graph, C[R[v] : R[v] +
+//       min(R[v+1] - R[v], W)]: the length comes from R, not from deg_ext,
+//       which over G² holds the original graph's degrees for the loser
+//       rule. Chunked worklists, degrees past the packed word.
+//   (e) IdLanes<kCsr, packed>: as (d), with colour and degree read from
+//       one packed word color | deg << 16 per vertex (K1's source).
+//   (f) TwoHopLanes: row ids[i] composed of two tables, as repro's
+//       TwoHopRows gathers it: local row l = v - start of adj_a (clamped
+//       to [0, n_rows), as repro clamps the gather; ids >= n or with
+//       v - start >= n_rows read no lane), its hop-1 lanes adj_a[l][k] for
+//       k < min(deg_a[l], W1) (themselves lanes when first_hop), and for
+//       each such mid id below n_mid the hop-2 lanes adj_b[mid][k2] for
+//       k2 < min(deg_b[mid], W2). Lanes past a degree hold the table's
+//       sentinel (n_mid in adj_a, n in adj_b) and show colour 0, so every
+//       answer is the full composed row's.
+//   Which lanes are read, and in what order, changes no answer: each
+//   function depends on the multiset of lanes only, and sentinel lanes
+//   (colour 0) never clash and are never forbidden.
 //
-// K3 superstep_tile_kernel
-//   Replaces src/repro/kernels/superstep/kernel.py:superstep_kernel.
-//   K5's test and K4's FirstFit in one pass over the row, with the lanes
-//   that row i beats counted as colour 0 (they recolour too). Writes
-//   newc = need ? ff : my_c and need = lose || my_c == 0. Sentinel masking
-//   (need &= id < n) is the caller's, as in repro. Reads source (c) only.
+// Bound on the card: bytes. Each word read once and each written once. K3
+// and K1 read w ids, w own colours and degrees, the lanes read (table, C or
+// the two tables' words, and R's two words a row for CSR rows), each
+// distinct neighbour's colour, and the degree of each distinct neighbour on
+// a lane that holds its row's nonzero colour, and write 2w words; over (c)
+// they read 3w row words, w*W neighbour colours and the ids and degrees of
+// the matching lanes. K4 over (a) reads w ids, Σ min(deg, W) table lanes
+// and each distinct neighbour's colour, and writes w; K5 adds w own colours
+// and degrees and, under the degree rule, the degrees of the neighbours on
+// lanes that hold the row's colour; a row of colour 0 needs none of its
+// lanes. Over (c) K4 reads w*W words and K5 3*w*W + 3*w. Per word they do a
+// few integer operations, far below the card's ratio of operations to
+// bytes. What holds them above that bound is each lane's colour: a 4-byte
+// read at a random place, served as a 32-byte sector (chip_smoke.py times
+// the rate of such reads beside each kernel).
 //
-// Bound on the card: bytes. Each word read once and each written once:
-// K4 over (a) reads w ids, Σ min(deg, W) table lanes and each distinct
-// neighbour's colour, and writes w; K5 adds w own colours and degrees and,
-// under the degree rule, the degrees of the neighbours on lanes that hold
-// the row's colour; a row of colour 0 needs none of its lanes. Over (c) K4
-// reads w*W words and K5 and K3 3*w*W + 3*w. Per word they do a few
-// integer operations, far below the card's ratio of operations to bytes.
-//
-// Design of K4 and K5. A group of G lanes takes a row (G in 1, 4, 8, 16,
-// 32, chosen by the wrapper from W: a thread a row for narrow rows, so no
-// lane idles at W = 8; 8 lanes for a table read up to each degree, whose
-// rows are short whatever W; a warp for wide gathered rows read in full),
-// so a warp takes 32 / G rows at once. The grid is as many 256-thread
-// blocks as are resident on the card, and each warp strides over the rows,
-// loading the next pass's row id before it works on the current row, so a
-// warp lives long and keeps loads in flight. The
-// chain per row is short: the row id; then the vertex's degree (and K5's
-// own colour) and the lanes' table words; then the lanes' colours from
-// colors_ext (L2-resident: 4 B x (n + 1)); K5 reads a neighbour's degree
-// only on lanes whose colour matches, and a row of colour 0 reads none.
-// colors_ext and deg_ext do not change during a launch (K4 writes `out`,
-// so a chunk reads the colours from before it), so all reads go through
-// the read-only path. FirstFit is common.cuh's for a group of G lanes: a
-// register mask of colours 1..32 reduced over the group, and only when all
-// 32 are taken a per-group shared bitset of (W+1+31)/32 words, 256 / G
-// bitsets a block (W = 4096 with G = 1: 132 KB; above 48 KB the launcher
+// Design. A group of G lanes takes a row (G in 1, 4, 8, 16, 32, chosen by
+// the wrapper from W and the source: a thread a row for narrow rows, so no
+// lane idles at W = 8; 8 lanes for rows read up to a degree, whose lengths
+// are short whatever W; a warp for wide rows read in full, and wherever
+// smaller groups' bitsets would not fit a block), so a warp takes 32 / G
+// rows at once. The grid is as many 256-thread blocks as are resident on
+// the card, and each warp strides over the rows, loading the next pass's
+// row id before it works on the current row, so a warp lives long and
+// keeps loads in flight. The chain per row is short: the row id; then the
+// vertex's colour and degree and the row's first table, C or R words; then
+// the lanes' colours (L2-resident: 4 B x (n + 1)); a neighbour's degree is
+// read only on lanes whose colour matches the row's, and for K5 a row of
+// colour 0 reads no lane. Two-hop rows: the group's lanes load up to G
+// hop-1 ids and their hop-2 degrees at once, then walk those mid rows one
+// by one, the ids and degrees broadcast by shuffles, the group's lanes
+// striding over each mid row, so a mid row's table words coalesce and no
+// lane waits on a chain of hop-1 loads. The colours and degrees do not
+// change during a launch, so all reads go through the read-only path.
+// FirstFit is common.cuh's for a group of G lanes: a register mask of
+// colours 1..32 reduced over the group, and only when all 32 are taken a
+// per-group shared bitset of (W+1+31)/32 words that the group fills by
+// reading its row again, 256 / G bitsets a block (above 48 KB the launcher
 // asks for more dynamic shared memory, and the wrappers refuse a layout
-// whose bitsets pass the 227 KB a block can have).
-//
-// Design of K3: one warp per row, lanes striding over it, so each step of
-// a warp reads 128 contiguous bytes of a tile; 8 warps a block. nid and nd
-// are read only on lanes that hold the row's colour, and a row of colour 0
-// (which cannot lose) reads neither.
+// whose bitsets pass the 227 KB a block can have: kkt_power's W = 144,504
+// fits with a warp a row, 8 bitsets of 18 KB). K3's superstep reads each
+// lane once on its first pass, the FirstFit mask and the loser test
+// together; only a row that takes the bitset path reads its lanes again.
 // ---------------------------------------------------------------------------
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 
 using repro::beats;
-using repro::first_fit;
 using repro::kFull;
 using repro::low_bit;
 
-// ---------------------------------------------------------------------------
-// K4 and K5: rows read where they lie
-// ---------------------------------------------------------------------------
-
-constexpr int kRowThreads = 256;  // threads a block of K4 or K5
+constexpr int kRowThreads = 256;  // threads a block
 
 // One row as a lane group sees it.
 struct Row {
-  int v;        // the row's vertex (K5)
-  int c, d;     // its colour and degree (K5)
-  int len;      // lanes to read
+  int v;        // the row's vertex
+  int c, d;     // its colour and degree
+  int len;      // lanes to read (two-hop rows: hop-1 lanes)
   size_t base;  // offset of lane 0
 };
 
-// Sources (a) and (b): lanes hold neighbour ids; colours and degrees are
-// read from colors_ext and deg_ext.
-template <bool kById>
+// Calls f(u, c, j) for lanes j = glane, glane + G, ... < r.len of a flat
+// row: the lane's neighbour u and the colour c it holds.
+template <int G, class Src, class F>
+__device__ __forceinline__ void each_flat(const Src& src, const Row& r, int glane, const F& f) {
+#pragma unroll 4
+  for (int j = glane; j < r.len; j += G) {
+    int u;
+    const int c = src.color(r, j, u);
+    f(u, c, j);
+  }
+}
+
+// Sources (a), (b), (d) and (e): lanes hold neighbour ids.
+enum class Rows { kTable, kTile, kCsr };
+
+template <Rows kRows, bool kPacked = false>
 struct IdLanes {
   const int* ids;
-  const int* rows;    // (a) the table, (b) the gathered id tile
-  long long stride;   // words between two rows of `rows`
-  const int* colors;  // colors_ext, n + 1 words
+  const int* rows;    // (a) the table, (b) the gathered id tile, (d, e) C
+  const int* starts;  // (d, e) R, n + 1 words
+  long long stride;   // (a, b) words between two rows of `rows`
+  const int* colors;  // colors_ext, or (e) the packed words, n + 1 each
   const int* deg;     // deg_ext, n + 1 words; (a) bounds the lanes read (K4: may be null)
   int n, W;
 
@@ -120,26 +170,43 @@ struct IdLanes {
   __device__ Row row(long long i, int v) const {
     Row r;
     r.v = v;
-    if (kById) {
-      const bool real = v < n;
+    const bool real = v < n;
+    if constexpr (kRows == Rows::kTable) {
       r.base = size_t(real ? v : 0) * size_t(stride);
       r.len = !real ? 0 : deg ? min(__ldg(deg + v), W) : W;
-    } else {
+    } else if constexpr (kRows == Rows::kTile) {
       r.base = size_t(i) * size_t(stride);
       r.len = W;
+    } else {
+      const int s = __ldg(starts + (real ? v : 0));
+      r.base = size_t(s);
+      r.len = real ? min(__ldg(starts + v + 1) - s, W) : 0;
     }
     const int own = min(v, n);
-    r.c = kOwnColor ? __ldg(colors + own) : 0;
-    r.d = kOwnDegree ? __ldg(deg + own) : 0;
+    if constexpr (kPacked) {
+      const int pk = (kOwnColor || kOwnDegree) ? __ldg(colors + own) : 0;
+      r.c = pk & 0xFFFF;
+      r.d = pk >> 16;
+    } else {
+      r.c = kOwnColor ? __ldg(colors + own) : 0;
+      r.d = kOwnDegree ? __ldg(deg + own) : 0;
+    }
     return r;
   }
 
   __device__ int color(const Row& r, int j, int& u) const {
     u = __ldg(rows + r.base + j);
-    return __ldg(colors + u);
+    const int c = __ldg(colors + u);
+    return kPacked ? c & 0xFFFF : c;
   }
   __device__ int id(const Row&, int, int u) const { return u; }
-  __device__ int degree(const Row&, int, int u) const { return __ldg(deg + u); }
+  __device__ int degree(const Row&, int, int u) const {
+    return kPacked ? __ldg(colors + u) >> 16 : __ldg(deg + u);
+  }
+  template <int G, class F>
+  __device__ void each(const Row& r, int glane, unsigned, const F& f) const {
+    each_flat<G>(*this, r, glane, f);
+  }
 };
 
 // Source (c): lanes hold ids, colours and degrees already.
@@ -168,6 +235,68 @@ struct TileLanes {
   __device__ int color(const Row& r, int j, int&) const { return nc[r.base + j]; }
   __device__ int id(const Row& r, int j, int) const { return nid[r.base + j]; }
   __device__ int degree(const Row& r, int j, int) const { return nd[r.base + j]; }
+  template <int G, class F>
+  __device__ void each(const Row& r, int glane, unsigned, const F& f) const {
+    each_flat<G>(*this, r, glane, f);
+  }
+};
+
+// Source (f): composed two-hop rows (see the header).
+struct TwoHopLanes {
+  const int* ids;
+  const int* adj_a;  // (n_rows, W1), rows stride_a words apart
+  const int* adj_b;  // (n_mid, W2), rows stride_b words apart
+  const int* deg_a;  // n_rows words: lanes of each adj_a row to read
+  const int* deg_b;  // n_mid words
+  const int* colors;
+  const int* deg;
+  long long stride_a, stride_b;
+  int W1, W2, n_rows, n_mid, start, n;
+  bool first_hop;  // hop-1 ids are lanes too (distance-2)
+
+  __device__ int key(long long i) const { return __ldg(ids + i); }
+
+  template <bool kOwnColor, bool kOwnDegree>
+  __device__ Row row(long long, int v) const {
+    Row r;
+    r.v = v;
+    const int l = v - start;
+    const bool valid = v < n && l < n_rows;
+    const int lc = min(max(l, 0), n_rows - 1);
+    r.base = size_t(lc) * size_t(stride_a);
+    r.len = valid ? min(__ldg(deg_a + lc), W1) : 0;
+    const int own = min(v, n);
+    r.c = kOwnColor ? __ldg(colors + own) : 0;
+    r.d = kOwnDegree ? __ldg(deg + own) : 0;
+    return r;
+  }
+
+  __device__ int id(const Row&, int, int u) const { return u; }
+  __device__ int degree(const Row&, int, int u) const { return __ldg(deg + u); }
+
+  template <int G, class F>
+  __device__ void each(const Row& r, int glane, unsigned gmask, const F& f) const {
+    for (int k0 = 0; k0 < r.len; k0 += G) {  // group-uniform
+      const int k = k0 + glane;
+      const int mid = k < r.len ? __ldg(adj_a + r.base + k) : n_mid;
+      if (first_hop && k < r.len) f(mid, __ldg(colors + mid), k);
+      const int dmid = mid < n_mid ? min(__ldg(deg_b + mid), W2) : 0;
+      const int count = min(G, r.len - k0);
+      for (int t = 0; t < count; ++t) {  // group-uniform
+        int mt = mid, dt = dmid;
+        if constexpr (G > 1) {
+          mt = __shfl_sync(gmask, mid, t, G);
+          dt = __shfl_sync(gmask, dmid, t, G);
+        }
+        const int* row2 = adj_b + size_t(mt) * size_t(stride_b);
+#pragma unroll 4
+        for (int j = glane; j < dt; j += G) {
+          const int u = __ldg(row2 + j);
+          f(u, __ldg(colors + u), j);
+        }
+      }
+    }
+  }
 };
 
 // A lane's place: G lanes a row, 32 / G rows a warp, the grid striding.
@@ -202,6 +331,68 @@ __device__ __forceinline__ bool group_any(bool p, unsigned mask) {
   if constexpr (G == 1) return p;
   else return __any_sync(mask, p);
 }
+
+// ---------------------------------------------------------------------------
+// K1 and K3: the superstep
+// ---------------------------------------------------------------------------
+
+template <int G, bool kDegreeRule, class Src>
+__global__ void __launch_bounds__(kRowThreads)
+superstep_rows_kernel(const Src src, int* __restrict__ newc, int* __restrict__ need_out,
+                      int w, int W) {
+  extern __shared__ unsigned smem[];
+  const Lanes<G> l;
+  unsigned* words = smem + (threadIdx.x / G) * repro::bitset_words(W);
+  long long i = l.first + l.group;
+  int key = i < w ? src.key(i) : 0;
+  for (long long pass = l.first; pass < w; pass += l.step) {  // warp-uniform
+    const long long next = i + l.step;
+    const int key_next = next < w ? src.key(next) : 0;
+    if (i < w) {  // group-uniform
+      const Row r = src.template row<true, kDegreeRule>(i, key);
+      // the colour a lane shows to FirstFit: neighbours the row beats count
+      // as cleared; `lose` gathers the lanes that beat the row
+      auto refit = [&](int u, int c, int j, bool& lose) {
+        if (r.c > 0 && c == r.c) {
+          const bool beaten =
+              beats<kDegreeRule>(src.id(r, j, u), kDegreeRule ? src.degree(r, j, u) : 0,
+                                 r.v, r.d);
+          lose = lose || beaten;
+          return beaten ? c : 0;
+        }
+        return c;
+      };
+      bool lose = false;
+      unsigned m = 0;
+      src.template each<G>(r, l.glane, l.mask,
+                           [&](int u, int c, int j) { m |= low_bit(refit(u, c, j, lose)); });
+      const bool need = group_any<G>(lose, l.mask) || r.c == 0;
+      int out = r.c;
+      if (need) {  // group-uniform
+        m = group_or<G>(m, l.mask);
+        out = repro::first_fit_visit<G>(
+            m,
+            [&](const auto& mark) {
+              bool unused = false;
+              src.template each<G>(r, l.glane, l.mask, [&](int u, int c, int j) {
+                mark(refit(u, c, j, unused));
+              });
+            },
+            W, words, l.glane, l.mask);
+      }
+      if (l.glane == 0) {
+        newc[i] = out;
+        need_out[i] = need ? 1 : 0;
+      }
+    }
+    i = next;
+    key = key_next;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K4 and K5
+// ---------------------------------------------------------------------------
 
 template <int G, class Src>
 __global__ void __launch_bounds__(kRowThreads)
@@ -263,6 +454,10 @@ conflict_rows_kernel(const Src src, int* __restrict__ lose_out, int w) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// launchers
+// ---------------------------------------------------------------------------
+
 int sm_count() {
   static const int count = [] {
     int dev = 0, c = 0;
@@ -274,7 +469,7 @@ int sm_count() {
 }
 
 // Launches `kernel` (G lanes a row) with as many blocks as stay resident,
-// and no more than the rows need. bitset: K4's FirstFit scratch.
+// and no more than the rows need. bitset: FirstFit's scratch (K1, K3, K4).
 template <int G, class Kernel, class... Args>
 int launch_rows(Kernel kernel, int w, int W, bool bitset, cudaStream_t st, Args... args) {
   if (w <= 0) return 0;
@@ -293,114 +488,65 @@ int launch_rows(Kernel kernel, int w, int W, bool bitset, cudaStream_t st, Args.
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class Src>
-int firstfit_rows(const Src& src, int* out, int w, int W, int lanes, cudaStream_t st) {
+// Calls launch(std::integral_constant<int, G>) for G = lanes.
+template <class Launch>
+int by_lanes(int lanes, const Launch& launch) {
   switch (lanes) {
-    case 1: return launch_rows<1>(firstfit_rows_kernel<1, Src>, w, W, true, st, src, out, w, W);
-    case 4: return launch_rows<4>(firstfit_rows_kernel<4, Src>, w, W, true, st, src, out, w, W);
-    case 8: return launch_rows<8>(firstfit_rows_kernel<8, Src>, w, W, true, st, src, out, w, W);
-    case 16:
-      return launch_rows<16>(firstfit_rows_kernel<16, Src>, w, W, true, st, src, out, w, W);
-    case 32:
-      return launch_rows<32>(firstfit_rows_kernel<32, Src>, w, W, true, st, src, out, w, W);
+    case 1: return launch(std::integral_constant<int, 1>{});
+    case 4: return launch(std::integral_constant<int, 4>{});
+    case 8: return launch(std::integral_constant<int, 8>{});
+    case 16: return launch(std::integral_constant<int, 16>{});
+    case 32: return launch(std::integral_constant<int, 32>{});
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <bool kDegreeRule, class Src>
-int conflict_rows(const Src& src, int* lose, int w, int W, int lanes, cudaStream_t st) {
-  switch (lanes) {
-    case 1:
-      return launch_rows<1>(conflict_rows_kernel<1, kDegreeRule, Src>, w, W, false, st, src,
-                            lose, w);
-    case 4:
-      return launch_rows<4>(conflict_rows_kernel<4, kDegreeRule, Src>, w, W, false, st, src,
-                            lose, w);
-    case 8:
-      return launch_rows<8>(conflict_rows_kernel<8, kDegreeRule, Src>, w, W, false, st, src,
-                            lose, w);
-    case 16:
-      return launch_rows<16>(conflict_rows_kernel<16, kDegreeRule, Src>, w, W, false, st,
-                             src, lose, w);
-    case 32:
-      return launch_rows<32>(conflict_rows_kernel<32, kDegreeRule, Src>, w, W, false, st,
-                             src, lose, w);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+template <class Src>
+int superstep_rows(const Src& src, int* newc, int* need, int w, int W, int degree_rule,
+                   int lanes, cudaStream_t st) {
+  return by_lanes(lanes, [&](auto g) {
+    constexpr int G = decltype(g)::value;
+    return degree_rule
+               ? launch_rows<G>(superstep_rows_kernel<G, true, Src>, w, W, true, st, src,
+                                newc, need, w, W)
+               : launch_rows<G>(superstep_rows_kernel<G, false, Src>, w, W, true, st, src,
+                                newc, need, w, W);
+  });
+}
+
+template <class Src>
+int firstfit_rows(const Src& src, int* out, int w, int W, int lanes, cudaStream_t st) {
+  return by_lanes(lanes, [&](auto g) {
+    constexpr int G = decltype(g)::value;
+    return launch_rows<G>(firstfit_rows_kernel<G, Src>, w, W, true, st, src, out, w, W);
+  });
 }
 
 template <class Src>
 int conflict_rows_rule(const Src& src, int* lose, int w, int W, int degree_rule, int lanes,
                        cudaStream_t st) {
-  return degree_rule ? conflict_rows<true>(src, lose, w, W, lanes, st)
-                     : conflict_rows<false>(src, lose, w, W, lanes, st);
+  return by_lanes(lanes, [&](auto g) {
+    constexpr int G = decltype(g)::value;
+    return degree_rule
+               ? launch_rows<G>(conflict_rows_kernel<G, true, Src>, w, W, false, st, src,
+                                lose, w)
+               : launch_rows<G>(conflict_rows_kernel<G, false, Src>, w, W, false, st, src,
+                                lose, w);
+  });
 }
 
-template <bool kById>
-IdLanes<kById> id_lanes(const void* ids, const void* rows, long long stride,
-                        const void* colors, const void* deg, int n, int W) {
-  return {static_cast<const int*>(ids), static_cast<const int*>(rows), stride,
-          static_cast<const int*>(colors), static_cast<const int*>(deg), n, W};
+const int* in(const void* p) { return static_cast<const int*>(p); }
+
+template <Rows kRows, bool kPacked = false>
+IdLanes<kRows, kPacked> id_lanes(const void* ids, const void* rows, const void* starts,
+                                 long long stride, const void* colors, const void* deg, int n,
+                                 int W) {
+  return {in(ids), in(rows), in(starts), stride, in(colors), in(deg), n, W};
 }
 
-// ---------------------------------------------------------------------------
-// K3: the superstep over gathered tiles, one warp a row
-// ---------------------------------------------------------------------------
-
-constexpr int kWarpsPerBlock = 8;  // one tile row per warp
-
-struct WarpRow {
-  int i;            // row index
-  int lane;
-  size_t base;      // offset of the row in the tiles
-  unsigned* words;  // the warp's FirstFit bitset
-};
-
-// The warp's row, or i >= w when the warp has none (whole warps leave).
-__device__ __forceinline__ WarpRow warp_row(int W) {
-  extern __shared__ unsigned smem[];
-  const int warp = threadIdx.x >> 5;
-  const int i = blockIdx.x * kWarpsPerBlock + warp;
-  return {i, static_cast<int>(threadIdx.x & 31), size_t(i) * W,
-          smem + warp * repro::bitset_words(W)};
-}
-
-template <bool kDegreeRule>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-superstep_tile_kernel(const int* __restrict__ ids, const int* __restrict__ my_c,
-                      const int* __restrict__ my_d, const int* __restrict__ nid,
-                      const int* __restrict__ nc, const int* __restrict__ nd,
-                      int* __restrict__ newc, int* __restrict__ need_out, int w,
-                      int W) {
-  const WarpRow r = warp_row(W);
-  if (r.i >= w) return;
-  const int v = ids[r.i], c = my_c[r.i], dv = my_d[r.i];
-
-  // colour lane j shows to FirstFit: neighbours v beats count as cleared
-  auto refit_color = [&](int j, bool* lose) {
-    const int cj = nc[r.base + j];
-    if (c > 0 && cj == c) {
-      const bool l = beats<kDegreeRule>(nid[r.base + j], nd[r.base + j], v, dv);
-      *lose = *lose || l;
-      return l ? cj : 0;
-    }
-    return cj;
-  };
-
-  bool lose = false;
-  unsigned m = 0;
-  for (int j = r.lane; j < W; j += 32) m |= low_bit(refit_color(j, &lose));
-  const bool need = __any_sync(kFull, lose) || c == 0;
-  int out = c;
-  if (need) {
-    m = __reduce_or_sync(kFull, m);
-    bool unused = false;
-    out = first_fit(m, [&](int j) { return refit_color(j, &unused); }, W, W, r.words);
-  }
-  if (r.lane == 0) {
-    newc[r.i] = out;
-    need_out[r.i] = need ? 1 : 0;
-  }
+TileLanes tile_lanes(const void* ids, const void* my_c, const void* my_d, const void* nid,
+                     const void* nc, const void* nd, int W) {
+  return {in(ids), in(my_c), in(my_d), in(nid), in(nc), in(nd), W};
 }
 
 }  // namespace
@@ -416,10 +562,10 @@ int repro_firstfit_rows(const void* ids, const void* rows, long long stride, int
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* o = static_cast<int*>(out);
   if (by_id)
-    return firstfit_rows(id_lanes<true>(ids, rows, stride, colors, deg, n, W), o, w, W,
-                         lanes, st);
-  return firstfit_rows(id_lanes<false>(ids, rows, stride, colors, deg, n, W), o, w, W, lanes,
-                       st);
+    return firstfit_rows(id_lanes<Rows::kTable>(ids, rows, nullptr, stride, colors, deg, n, W),
+                         o, w, W, lanes, st);
+  return firstfit_rows(id_lanes<Rows::kTile>(ids, rows, nullptr, stride, colors, deg, n, W), o,
+                       w, W, lanes, st);
 }
 
 // K5 over source (a) or (b), as K4. degree_rule: 0 = id rule, 1 = degree
@@ -430,57 +576,78 @@ int repro_conflict_rows(const void* ids, const void* rows, long long stride, int
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* o = static_cast<int*>(lose);
   if (by_id)
-    return conflict_rows_rule(id_lanes<true>(ids, rows, stride, colors, deg, n, W), o, w, W,
-                              degree_rule, lanes, st);
-  return conflict_rows_rule(id_lanes<false>(ids, rows, stride, colors, deg, n, W), o, w, W,
-                            degree_rule, lanes, st);
+    return conflict_rows_rule(
+        id_lanes<Rows::kTable>(ids, rows, nullptr, stride, colors, deg, n, W), o, w, W,
+        degree_rule, lanes, st);
+  return conflict_rows_rule(id_lanes<Rows::kTile>(ids, rows, nullptr, stride, colors, deg, n, W),
+                            o, w, W, degree_rule, lanes, st);
 }
 
 // K4 over source (c): the (w, W) colour tile nc. Returns a cudaError_t.
 int repro_firstfit_tile(const void* nc, void* out, int w, int W, int lanes, void* stream) {
-  const TileLanes src{nullptr, nullptr, nullptr, nullptr, static_cast<const int*>(nc),
-                      nullptr, W};
-  return firstfit_rows(src, static_cast<int*>(out), w, W, lanes,
-                       static_cast<cudaStream_t>(stream));
+  return firstfit_rows(tile_lanes(nullptr, nullptr, nullptr, nullptr, nc, nullptr, W),
+                       static_cast<int*>(out), w, W, lanes, static_cast<cudaStream_t>(stream));
 }
 
 // K5 over source (c). Returns a cudaError_t.
 int repro_conflict_tile(const void* ids, const void* my_c, const void* my_d,
                         const void* nid, const void* nc, const void* nd, void* lose,
                         int w, int W, int degree_rule, int lanes, void* stream) {
-  const TileLanes src{static_cast<const int*>(ids), static_cast<const int*>(my_c),
-                      static_cast<const int*>(my_d), static_cast<const int*>(nid),
-                      static_cast<const int*>(nc),  static_cast<const int*>(nd),
-                      W};
-  return conflict_rows_rule(src, static_cast<int*>(lose), w, W, degree_rule, lanes,
+  return conflict_rows_rule(tile_lanes(ids, my_c, my_d, nid, nc, nd, W),
+                            static_cast<int*>(lose), w, W, degree_rule, lanes,
                             static_cast<cudaStream_t>(stream));
 }
 
-// K3. degree_rule: 0 = id rule, 1 = degree rule. Returns a cudaError_t.
+// K3 over source (c), the tiles gathered by the caller. degree_rule: 0 = id
+// rule, 1 = degree rule. Returns a cudaError_t.
 int repro_superstep_tile(const void* ids, const void* my_c, const void* my_d,
                          const void* nid, const void* nc, const void* nd, void* newc,
-                         void* need, int w, int W, int degree_rule, void* stream) {
-  if (w <= 0) return 0;
-  const size_t smem = size_t(kWarpsPerBlock) * repro::bitset_words(W) * sizeof(unsigned);
-  const dim3 grid((w + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  const dim3 block(kWarpsPerBlock * 32);
+                         void* need, int w, int W, int degree_rule, int lanes, void* stream) {
+  return superstep_rows(tile_lanes(ids, my_c, my_d, nid, nc, nd, W), static_cast<int*>(newc),
+                        static_cast<int*>(need), w, W, degree_rule, lanes,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// K3 over source (a) (csr = 0: row ids[i] of `rows`, `stride` words a row,
+// up to min(deg[v], W) lanes) or (d) (csr = 1: `rows` is C, `starts` R).
+// Returns a cudaError_t.
+int repro_superstep_rows(const void* ids, const void* rows, const void* starts,
+                         long long stride, int csr, const void* colors, const void* deg,
+                         void* newc, void* need, int w, int W, int n, int degree_rule,
+                         int lanes, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* a = static_cast<const int*>(ids);
-  const int* c = static_cast<const int*>(my_c);
-  const int* d = static_cast<const int*>(my_d);
-  const int* u = static_cast<const int*>(nid);
-  const int* uc = static_cast<const int*>(nc);
-  const int* ud = static_cast<const int*>(nd);
   int* o = static_cast<int*>(newc);
   int* q = static_cast<int*>(need);
-  if (degree_rule) {
-    if (const int e = repro::allow_smem(superstep_tile_kernel<true>, smem)) return e;
-    superstep_tile_kernel<true><<<grid, block, smem, st>>>(a, c, d, u, uc, ud, o, q, w, W);
-  } else {
-    if (const int e = repro::allow_smem(superstep_tile_kernel<false>, smem)) return e;
-    superstep_tile_kernel<false><<<grid, block, smem, st>>>(a, c, d, u, uc, ud, o, q, w, W);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (csr)
+    return superstep_rows(id_lanes<Rows::kCsr>(ids, rows, starts, 0, colors, deg, n, W), o, q,
+                          w, W, degree_rule, lanes, st);
+  return superstep_rows(id_lanes<Rows::kTable>(ids, rows, nullptr, stride, colors, deg, n, W),
+                        o, q, w, W, degree_rule, lanes, st);
+}
+
+// K3 over source (f), composed two-hop rows. Returns a cudaError_t.
+int repro_superstep_two_hop(const void* ids, const void* adj_a, long long stride_a, int W1,
+                            const void* deg_a, int n_rows, const void* adj_b,
+                            long long stride_b, int W2, const void* deg_b, int n_mid,
+                            int start, int first_hop, const void* colors, const void* deg,
+                            void* newc, void* need, int w, int W, int n, int degree_rule,
+                            int lanes, void* stream) {
+  const TwoHopLanes src{in(ids),   in(adj_a), in(adj_b), in(deg_a), in(deg_b), in(colors),
+                        in(deg),   stride_a,  stride_b,  W1,        W2,        n_rows,
+                        n_mid,     start,     n,         first_hop != 0};
+  return superstep_rows(src, static_cast<int*>(newc), static_cast<int*>(need), w, W,
+                        degree_rule, lanes, static_cast<cudaStream_t>(stream));
+}
+
+// K1: source (e), CSR rows over the packed color | deg << 16 words (n + 1,
+// slot n = 0). Returns a cudaError_t.
+int repro_superstep_csr(const void* wl, const void* row_starts, const void* col,
+                        const void* packed, void* newc, void* need, int w, int W, int n,
+                        int degree_rule, int lanes, void* stream) {
+  return superstep_rows(
+      id_lanes<Rows::kCsr, true>(wl, col, row_starts, 0, packed, nullptr, n, W),
+      static_cast<int*>(newc), static_cast<int*>(need), w, W, degree_rule, lanes,
+      static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -10,7 +10,8 @@ strategies share one result:
   K2 for the tail on the card.
 * ``onthefly`` — when the G² view would pass the memory budget, compose
   two sentinel-padded gathers per super-step instead (``TwoHopRows``):
-  K3 over the composed ``(w, W1·W2 + W1)`` tiles, and the tail as K2 over
+  K3 over the composed ``(w, W1·W2 + W1)`` rows, read by id from the two
+  tables on the card (``TwoHopRows.lane_source``), and the tail as K2 over
   the composed rows laid out segment by segment
   (``core.coloring._composed_tail``).
 
@@ -40,8 +41,10 @@ from repro_torch.core.coloring import (
 )
 from repro_torch.core.csr import CSRGraph, DeviceCSR
 from repro_torch.ingest import packed_gather_ok
+from repro_torch.kernels.cuda import TwoHopLanes
 from repro_torch.kernels.d2.kernel import d2_firstfit
 from repro_torch.kernels.dispatch import resolve_backend
+from repro_torch.kernels.superstep.kernel import two_hop_tile
 
 __all__ = ["color_distance2", "d2_sgr_step", "TwoHopRows", "DEFAULT_D2_BUDGET"]
 
@@ -61,6 +64,10 @@ class TwoHopRows:
     lanes.  ``start`` and ``n_colored`` serve a shard's slice of ``adj_a``
     (worklist ids stay global, ``id - start`` picks the local row), as in
     ``repro``; the sharded engine (ROADMAP A11) is not ported yet.
+
+    On the card K3 reads each hop's rows up to their degrees, read off the
+    tables once here (a row's lanes up to its last non-sentinel one:
+    ``lane_source``); ``rows`` gathers the full composed tile.
     """
 
     def __init__(self, adj_a: torch.Tensor, adj_b: torch.Tensor,
@@ -71,42 +78,46 @@ class TwoHopRows:
         self.include_first_hop = bool(include_first_hop)
         self.start = int(start)
         self.n_colored = n_colored
+        self.deg_a = _row_degrees(adj_a, int(adj_b.shape[0]))
+        self.deg_b = _row_degrees(adj_b, self.n)
 
     @property
     def device(self) -> torch.device:
         return self.adj_a.device
 
     @property
+    def n(self) -> int:
+        """The coloured side's vertex count (global)."""
+        return (int(self.adj_a.shape[0]) if self.n_colored is None
+                else int(self.n_colored))
+
+    @property
     def width(self) -> int:
         w1, w2 = int(self.adj_a.shape[1]), int(self.adj_b.shape[1])
         return w1 * w2 + (w1 if self.include_first_hop else 0)
 
+    def lane_source(self, width: int | None = None):
+        """``(source, W)``: the composed rows by id (``TwoHopLanes``) and
+        their width; ``width`` requests are ignored."""
+        return TwoHopLanes(self.adj_a, self.adj_b, self.deg_a, self.deg_b,
+                           self.include_first_hop, self.start, self.n), self.width
+
     def rows(self, ids: torch.Tensor, width: int | None = None) -> torch.Tensor:
         """The ``(w, width)`` composed tile; ``width`` requests are ignored."""
-        n = (int(self.adj_a.shape[0]) if self.n_colored is None
-             else int(self.n_colored))          # colored side (global)
-        n_rows = int(self.adj_a.shape[0])
-        n_mid = int(self.adj_b.shape[0])
-        lidx = ids - self.start
-        rows1 = self.adj_a[lidx.clamp(0, max(n_rows - 1, 0)).long()]
-        valid = (ids < n) & (lidx < n_rows)
-        rows1 = torch.where(valid[:, None], rows1, n_mid)
-        if n_mid:
-            rows2 = gather_rows(self.adj_b, rows1.reshape(-1), sentinel=n)
-        else:  # no mid-side ids: every lane is a sentinel
-            rows2 = torch.full((rows1.numel(), self.adj_b.shape[1]), n,
-                               dtype=rows1.dtype, device=rows1.device)
-        rows2 = rows2.reshape(ids.shape[0], -1)
-        if self.include_first_hop:
-            # hop-1 fill ids index the mid side; remap masked lanes to the
-            # colored-side sentinel so they stay inert through colors_ext
-            rows1 = torch.where(valid[:, None], rows1, n)
-            return torch.cat([rows1, rows2], dim=1)
-        return rows2
+        return two_hop_tile(self.adj_a, self.adj_b, self.include_first_hop,
+                            self.start, self.n, ids)
 
     def row1(self, v) -> torch.Tensor:
         return self.rows(torch.tensor([int(v)], dtype=torch.int32,
                                       device=self.device))[0]
+
+
+def _row_degrees(table: torch.Tensor, sentinel: int) -> torch.Tensor:
+    """Each row's lanes up to its last one that is not ``sentinel``: every
+    lane past it holds the sentinel, so reading that many changes nothing."""
+    lane = torch.arange(1, table.shape[1] + 1, dtype=torch.int32,
+                        device=table.device)
+    return torch.where(table != sentinel, lane, 0).amax(dim=1).to(torch.int32)
 
 
 # --------------------------------------------------------------------------

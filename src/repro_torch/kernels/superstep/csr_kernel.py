@@ -1,9 +1,11 @@
 """K1 and K2: the CSR-resident superstep and the serial tail.
 
 Counterparts of ``repro.kernels.superstep.csr_kernel``.  The kernels are
-hand-written CUDA in ``repro_torch/csrc/superstep_csr.cu`` (its header says
-what each replaces, what bounds it and how its design answers that).  Each
-kernel has here:
+hand-written CUDA: K1 is ``superstep_rows_kernel`` in
+``repro_torch/csrc/tile_kernels.cu`` over CSR rows of packed words (K3's
+body, see ``kernel``), K2 is in ``repro_torch/csrc/superstep_csr.cu``
+(their headers say what each replaces, what bounds it and how its design
+answers that).  Each kernel has here:
 
 * a wrapper (``superstep_csr``; ``serial_tail_csr``, and for rows the
   caller lays out ``serial_tail_rows``) that launches the kernel for CUDA
@@ -29,11 +31,12 @@ import functools
 
 import torch
 
-from repro_torch.core.firstfit import firstfit_bitset
-from repro_torch.core.heuristics import HEURISTICS, conflict_lose_lanes
+from repro_torch.core.csr import csr_tile
+from repro_torch.core.heuristics import HEURISTICS
 from repro_torch.ingest import PACKED_GATHER_MAX_DEG
 from repro_torch.kernels import build
-from repro_torch.kernels.cuda import check, check_bitset_width, on_cpu, stream
+from repro_torch.kernels.cuda import check, check_bitset_width, on_cpu, row_lanes, stream
+from repro_torch.kernels.superstep.kernel import superstep_tile_ref
 
 __all__ = [
     "serial_tail_csr",
@@ -49,12 +52,20 @@ _LIB = "superstep_csr"
 
 
 @functools.cache
+def _k1_lib() -> ctypes.CDLL:
+    """K1's library, the row-resident kernels' (built at first use)."""
+    lib = build.load("tile_kernels")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.repro_superstep_csr.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+    lib.repro_superstep_csr.restype = i32
+    return lib
+
+
+@functools.cache
 def _lib() -> ctypes.CDLL:
-    """The kernels' library (built at first use), its signatures declared."""
+    """K2's library (built at first use), its signature declared."""
     lib = build.load(_LIB)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.repro_superstep_csr.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
-    lib.repro_superstep_csr.restype = i32
     lib.repro_serial_tail_csr.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
     lib.repro_serial_tail_csr.restype = i32
     return lib
@@ -83,36 +94,24 @@ def superstep_csr_ref(row_starts, col_padded, packed, wl, W: int,
     packed one: they differ over G² (distance-2), where the packed degree
     is the original graph's.
     """
-    n = row_starts.shape[0] - 1
-    safe = wl.clamp(0, max(n - 1, 0)).long()
-    starts = row_starts[safe]
-    row_len = torch.where(wl < n, row_starts[safe + 1] - starts, 0)
-    lane = torch.arange(W, dtype=torch.int32)[None, :]
     mypk = packed[wl.long()]
     my_c = mypk & 0xFFFF
     my_d = mypk >> 16
-    # lanes past a row's length are masked below; clamping keeps their reads
-    # inside C when W exceeds the sentinel slack (JAX clamps gathers alike)
-    idx = (starts[:, None] + lane).clamp(max=col_padded.shape[0] - 1)
-    nid = torch.where(lane < row_len[:, None], col_padded[idx.long()], n)
+    nid = csr_tile(row_starts, col_padded, wl, W)
     npk = packed[nid.long()]
-    nc = npk & 0xFFFF
-    nd = npk >> 16
-    same, lose_lane = conflict_lose_lanes(wl, nid, my_c, nc, my_d, nd, heuristic)
-    need = lose_lane.any(dim=1) | (my_c == 0)
-    ff = firstfit_bitset(torch.where(same & ~lose_lane, 0, nc))
-    return torch.where(need, ff, my_c).to(torch.int32), need
+    return superstep_tile_ref(wl, nid, my_c, npk & 0xFFFF, my_d, npk >> 16, heuristic)
 
 
 def superstep_csr(row_starts, col_padded, packed, wl, W: int,
-                  heuristic: str = "degree"):
+                  heuristic: str = "degree", *, lanes: int | None = None):
     """Fused row gather + conflict check + FirstFit straight from CSR.
 
     Returns ``(new_colors, need)`` for the worklist ``wl`` (ids in
     ``[0, n]``, ``n`` = sentinel).  Sentinel masking (``wl < n``) is the
     caller's job, as in ``repro``.  ``W`` is the degree-class width and
     must cover every worklist degree; the packed word needs
-    ``W < PACKED_GATHER_MAX_DEG``.
+    ``W < PACKED_GATHER_MAX_DEG``.  ``lanes=`` forces a layout (lanes a
+    row), as for K3.
     """
     if heuristic not in HEURISTICS:
         raise ValueError(f"unknown heuristic {heuristic!r}; options: {HEURISTICS}")
@@ -121,6 +120,7 @@ def superstep_csr(row_starts, col_padded, packed, wl, W: int,
     w = wl.shape[0]
     n = row_starts.shape[0] - 1
     cpu = _on_cpu(row_starts, col_padded, packed, wl)
+    lanes = row_lanes(int(W), lanes)
     if w == 0 or n == 0:
         return (torch.zeros((0,), dtype=torch.int32, device=wl.device),
                 torch.zeros((0,), dtype=torch.bool, device=wl.device))
@@ -128,13 +128,13 @@ def superstep_csr(row_starts, col_padded, packed, wl, W: int,
         return superstep_csr_ref(row_starts, col_padded, packed, wl, W, heuristic)
     if packed.shape[0] != n + 1:
         raise ValueError(f"packed has {packed.shape[0]} slots, expected n + 1 = {n + 1}")
-    lib = _lib()
+    lib = _k1_lib()
     newc = torch.empty((w,), dtype=torch.int32, device=wl.device)
     need = torch.empty((w,), dtype=torch.int32, device=wl.device)
     rc = lib.repro_superstep_csr(
         wl.data_ptr(), row_starts.data_ptr(), col_padded.data_ptr(),
         packed.data_ptr(), newc.data_ptr(), need.data_ptr(),
-        w, int(W), n, int(heuristic == "degree"), stream(wl.device))
+        w, int(W), n, int(heuristic == "degree"), lanes, stream(wl.device))
     superstep_csr.launches += 1
     check(lib, rc, "superstep_csr")
     return newc, need.bool()

@@ -9,6 +9,7 @@ Without a card they skip; the decision is made inside the ``cuda_device``
 fixture, never while the module is imported.
 """
 import ast
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -25,6 +26,7 @@ from repro_torch.d2 import (
     validate_bipartite,
     validate_d2,
 )
+from repro_torch.d2.coloring import TwoHopRows
 from repro_torch.errors import CapacityError
 from repro_torch.graphs import (
     build_graph,
@@ -40,7 +42,7 @@ from repro_torch.kernels.conflict.kernel import (
     conflict_tile,
     conflict_tile_ref,
 )
-from repro_torch.kernels.cuda import ROW_LANES
+from repro_torch.kernels.cuda import ROW_LANES, TableRows
 from repro_torch.kernels.d2.kernel import d2_firstfit, d2_firstfit_ref
 from repro_torch.kernels.firstfit.kernel import (
     firstfit_rows,
@@ -57,7 +59,13 @@ from repro_torch.kernels.superstep.csr_kernel import (
     superstep_csr,
     superstep_csr_ref,
 )
-from repro_torch.kernels.superstep.kernel import superstep_tile, superstep_tile_ref
+from repro_torch.kernels.superstep.kernel import (
+    source_tile,
+    superstep_rows,
+    superstep_rows_ref,
+    superstep_tile,
+    superstep_tile_ref,
+)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -494,6 +502,9 @@ def test_cuda_tile_entry_points_take_each_layout(cuda_device, zero_counts, W, la
     for heuristic in ("id", "degree"):
         assert torch.equal(conflict_tile_ref(*args, heuristic),
                            conflict_tile(*gpu, heuristic, lanes=lanes).cpu())
+        got = superstep_tile(*gpu, heuristic, lanes=lanes)
+        assert all(torch.equal(a, b.cpu())
+                   for a, b in zip(superstep_tile_ref(*args, heuristic), got))
 
 
 @pytest.mark.cuda
@@ -564,6 +575,169 @@ def test_cuda_wrappers_reject_other_dtypes_and_mixed_devices(cuda_device):
         conflict_rows(colors, deg, ids, table=table.cpu()[:, :16])
     with pytest.raises(ValueError, match="int32"):
         conflict_rows(colors, deg, ids, rows=rows.long())
+
+
+def _k3_case(source, seed=14):
+    """``(source, W, deg_ext, colors_ext, ids)`` on the CPU for K3 over a
+    row source: a column-sliced random table (rows W + 3 words apart), the
+    padded engine's dense table, CSR rows at full and at a class width, G²
+    rows with G's degrees, two-hop rows for distance-2, for bipartite and
+    for a shard's slice of the first hop.  Small colours that clash, three
+    sentinel ids, and the row with the most distinct neighbours holding
+    1, 2, ... one each while its vertex is uncoloured (for rows of 33 or
+    more, FirstFit's shared-bitset path)."""
+    rng = np.random.default_rng(seed)
+    if source == "table":
+        table, deg, _, ids, _ = _rows_inputs(40, seed=seed)
+        src, W = TableRows(table[:, :40]), 40
+    elif source in ("dense", "csr", "csr-class"):
+        g = power_law(1500, 6.0, seed=seed)
+        dev = DeviceCSR.from_csr(g, "cpu")
+        deg = dev.deg_ext
+        if source == "dense":
+            src, W = core_coloring.DenseRows(
+                torch.from_numpy(g.padded_adjacency()), dev).lane_source()
+        else:
+            src, W = dev.lane_source(16 if source == "csr-class" else None)
+        ids = rng.permutation(g.n)
+        ids = ids[deg[ids].numpy() <= W][:999]
+    elif source == "csr-g2":
+        g = erdos_renyi(1000, 4.0, seed=seed)
+        src, W = DeviceCSR.from_csr(g.square(), "cpu").lane_source()
+        deg = DeviceCSR.from_csr(g, "cpu").deg_ext
+        ids = rng.permutation(g.n)
+    elif source == "two-hop-bipartite":
+        bg = jacobian_tall_skinny(2000, 64, 4, seed=seed)
+        c2r, r2c = (torch.from_numpy(a) for a in bg.padded_halves())
+        src, W = TwoHopRows(c2r, r2c, False).lane_source()
+        deg = torch.from_numpy(np.concatenate([bg.col_degrees, [0]]).astype(np.int32))
+        ids = rng.permutation(bg.n_cols)
+    else:
+        g = erdos_renyi(2000, 6.0, seed=seed)
+        adj = torch.from_numpy(g.padded_adjacency())
+        deg = torch.from_numpy(np.concatenate([g.degrees, [0]]).astype(np.int32))
+        if source == "two-hop-d2":
+            src, W = TwoHopRows(adj, adj).lane_source()
+            ids = rng.permutation(g.n)[:999]
+        else:  # rows [500, 1500) of the first hop; ids outside it too
+            src, W = TwoHopRows(adj[500:1500].clone(), adj, True, 500, g.n).lane_source()
+            ids = rng.permutation(g.n)[:999]
+    n = deg.shape[0] - 1
+    ids = torch.from_numpy(np.concatenate([ids, [n, n, n]]).astype(np.int32))
+    colors = torch.from_numpy(rng.integers(0, 6, n + 1).astype(np.int32))
+    colors[n] = 0
+    tile = source_tile(src, ids, n, W)
+    real = [torch.unique(r[(r < n) & (r != v)]) for r, v in zip(tile, ids)]
+    i = max(range(len(real)), key=lambda k: real[k].numel())
+    colors[real[i].long()] = torch.randperm(real[i].numel(), dtype=torch.int32) + 1
+    colors[ids[i]] = 0
+    return src, W, deg, colors, ids
+
+
+def _to(source, device):
+    """``source`` with its tensors on ``device`` (a sliced table sliced there)."""
+    if isinstance(source, TableRows):
+        table = source.table
+        full = table.as_strided((table.shape[0], table.stride(0)), table.stride())
+        return TableRows(full.to(device)[:, :table.shape[1]])
+    return dataclasses.replace(source, **{
+        f.name: getattr(source, f.name).to(device) for f in dataclasses.fields(source)
+        if isinstance(getattr(source, f.name), torch.Tensor)})
+
+
+K3_SOURCES = ["table", "dense", "csr", "csr-class", "csr-g2", "two-hop-d2",
+              "two-hop-bipartite", "two-hop-start"]
+
+
+def test_k3_cases_take_the_plain_version_on_cpu(zero_counts):
+    """The card tests' K3 inputs are well formed: on CPU tensors the wrapper
+    equals its plain version in every forced layout, and counts nothing."""
+    for source in K3_SOURCES:
+        src, W, deg, colors, ids = _k3_case(source)
+        want = superstep_rows_ref(colors, deg, ids, "degree", source=src, W=W)
+        for lanes in ROW_LANES:
+            got = superstep_rows(colors, deg, ids, "degree", source=src, W=W, lanes=lanes)
+            assert all(torch.equal(a, b) for a, b in zip(want, got))
+        assert want[1].any() and not want[1].all()
+    assert superstep_tile.launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heuristic", ["id", "degree"])
+@pytest.mark.parametrize("lanes", ROW_LANES)
+@pytest.mark.parametrize("source", K3_SOURCES)
+def test_cuda_k3_rows_match_plain(cuda_device, zero_counts, source, lanes, heuristic):
+    """K3 reading rows by id from each source, in each layout forced, equals
+    its plain version (the source's tile gathered on the CPU)."""
+    src, W, deg, colors, ids = _k3_case(source)
+    want = superstep_rows_ref(colors, deg, ids, heuristic, source=src, W=W)
+    got = superstep_rows(colors.to(cuda_device), deg.to(cuda_device), ids.to(cuda_device),
+                         heuristic, source=_to(src, cuda_device), W=W, lanes=lanes)
+    assert all(torch.equal(a, b.cpu()) for a, b in zip(want, got))
+    assert superstep_tile.launches == 1 and superstep_csr.launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", ROW_LANES)
+def test_cuda_k1_layouts_match_plain(cuda_device, zero_counts, lanes):
+    g, dev, packed, wl = _k1_inputs(seed=11)
+    gpu = DeviceCSR.from_csr(g, cuda_device)
+    for heuristic in ("id", "degree"):
+        want = superstep_csr_ref(dev.row_starts, dev.col_padded, packed, wl,
+                                 dev.max_width, heuristic)
+        got = superstep_csr(gpu.row_starts, gpu.col_padded, packed.to(cuda_device),
+                            wl.to(cuda_device), dev.max_width, heuristic, lanes=lanes)
+        assert all(torch.equal(a, b.cpu()) for a, b in zip(want, got))
+    assert superstep_csr.launches == 2 and superstep_tile.launches == 0
+
+
+def _superstep_gathers_nothing(monkeypatch):
+    """Make ``provider.rows`` and ``gather_rows`` raise inside every
+    ``ragged_superstep`` call (the composed tail's segments may still
+    gather)."""
+    real = core_coloring.ragged_superstep
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the superstep gathered a tile on the card")
+
+    def guarded(provider, *args, **kwargs):
+        with monkeypatch.context() as m:
+            m.setattr(provider, "rows", refuse)
+            m.setattr(core_coloring, "gather_rows", refuse)
+            return real(provider, *args, **kwargs)
+
+    monkeypatch.setattr(core_coloring, "ragged_superstep", guarded)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    ("data_driven", "rmat-g", dict(engine="padded")),
+    ("data_driven", "rmat-g", dict(engine="padded", mode="fused")),
+    ("data_driven", "rmat-g", dict(coarsen_lanes=1024)),
+    ("data_driven", "star", {}),
+    ("distance2", "rmat-g", dict(strategy="onthefly")),
+    ("distance2", "thermal2", dict(strategy="onthefly", mode="fused")),
+    ("bipartite", "tall-skinny", dict(strategy="onthefly")),
+    ("bipartite", "band", dict(strategy="onthefly")),
+], ids=["padded", "padded-fused", "chunked", "overflow", "d2-onthefly",
+        "d2-onthefly-fused", "bipartite-tall-skinny", "bipartite-band"])
+def test_cuda_superstep_gathers_no_rows(cuda_device, zero_counts, monkeypatch, case):
+    """The superstep on the card reads every row in place: with the
+    providers' ``rows`` made to raise inside it, each engine that runs K3
+    still equals the CPU run in every field."""
+    algorithm, graph, opts = case
+    g = {"band": lambda: jacobian_band(4096, band=3),
+         "tall-skinny": lambda: jacobian_tall_skinny(2000, 64, 4, seed=1),
+         "star": lambda: csr_from_edges(32769, np.zeros(32768, np.int64),
+                                        np.arange(1, 32769))}.get(
+        graph, lambda: build_graph(graph, 0.02))()
+    _superstep_gathers_nothing(monkeypatch)
+    a = repro_torch.color(g, algorithm, device=cuda_device, **opts)
+    monkeypatch.undo()
+    assert superstep_tile.launches > 0
+    b = repro_torch.color(g, algorithm, device="cpu", **opts)
+    np.testing.assert_array_equal(a.colors, b.colors)
+    assert all(getattr(a, f) == getattr(b, f) for f in FIELDS)
 
 
 @pytest.mark.cuda
