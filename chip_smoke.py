@@ -7,7 +7,8 @@ Run from the root of a checkout, with no arguments:
 
 Phases, in order; any failure ends the run with a non-zero exit code:
 
-1. device  — needs ``torch.cuda.is_available()``; prints the card.
+1. device  — needs ``torch.cuda.is_available()``; prints the card and the
+             host CPU.
 2. build   — compiles every CUDA source (one ``nvcc`` each, in parallel)
              and prints the ``-Xptxas -v`` register / shared-memory lines.
 3. K1      — the superstep over packed CSR words against its plain
@@ -46,7 +47,14 @@ Phases, in order; any failure ends the run with a non-zero exit code:
              strategies, both modes), ``bipartite`` on two Jacobian
              patterns (both strategies), and ``d2_sgr_step`` to convergence
              on rmat-er at 0.05 (with and without the hop-1 neighbours):
-             card == CPU.
+             card == CPU.  Then the paper's baselines on rmat-er, rmat-g
+             and thermal2 at 0.25: ``serial``, ``topology`` (both
+             heuristics; K4 and K5 over the dense table, ``gather_rows``
+             made to raise), ``jp``, ``multihash`` (1 and 2 hashes) and
+             ``threestep`` (``serial_tail`` too); traced ragged, classic
+             and distance-2 runs (``trace.steps`` too); and
+             ``ensure_valid=True`` on unconverged runs (``degradations``
+             too): card == CPU.
 9. full    — the main paths at full size, each run once with the launch
              counts set to 0 just before and read just after, then timed:
              the default ragged path, the classic engine and the padded
@@ -86,6 +94,16 @@ Phases, in order; any failure ends the run with a non-zero exit code:
              chain as deep as the tail), each layout, against their bounds
              and plain versions; K5 over ``d2_sgr_step``'s first-step
              composed rows (W = 702), each layout.
+11. comparison — the paper's comparison on rmat-er, rmat-g and thermal2,
+             uncut: ``serial`` (one run on the host), ``topology``,
+             ``jp``, ``multihash`` and ``threestep`` beside phase 9's
+             default ``data_driven``, each counted (topology and threestep
+             launch K4 and K5 and gather no tile), timed as in phase 9 and
+             valid; colours against serial's and data_driven's speedup over
+             each; the traced default path against the untraced one on
+             rmat-er (same colours, ``check()`` passes, both walls); and
+             ``ensure_valid=True, max_iters=1`` on rmat-er (the rungs
+             taken).
 
 The line before the last is the kernels' JSON record, and the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
@@ -1007,6 +1025,68 @@ def check_d2_slice(dev_cuda):
     print(f"d2 slice launches: {counts}", flush=True)
 
 
+# the paper's baselines checked card == CPU at small scale
+SMALL_BASELINES = [
+    ("serial", {}),
+    ("topology", dict(heuristic="id")),
+    ("topology", dict(heuristic="degree")),
+    ("jp", {}),
+    ("multihash", dict(nhash=1)),
+    ("multihash", dict(nhash=2)),
+    ("threestep", {}),
+]
+
+
+def check_baselines_slice(dev_cuda):
+    """The baselines, traced runs and the ladder: card == CPU port."""
+    reset_counts()
+    for name in PAPER:
+        g = build_graph(name, 0.25)
+        for algorithm, opts in SMALL_BASELINES:
+            with no_tile_gathers():  # K4 and K5 read the dense table in place
+                a = color(g, algorithm, device=dev_cuda, **opts)
+            b = color(g, algorithm, device="cpu", **opts)
+            diff = same_result(a, b)
+            if a.algorithm != b.algorithm:
+                diff.append(("algorithm", a.algorithm, b.algorithm))
+            if getattr(a, "serial_tail", None) != getattr(b, "serial_tail", None):
+                diff.append(("serial_tail", a.serial_tail, b.serial_tail))
+            if diff or not is_valid_coloring(g, a.colors):
+                fail(f"baselines slice: {name} {algorithm} {opts}: card != cpu "
+                     f"or invalid: {diff}")
+            print(f"baselines slice {name:9s} n={g.n} {algorithm:9s} {opts}: "
+                  f"iters={a.iterations} colors={a.num_colors}"
+                  + (f" serial_tail={a.serial_tail}" if algorithm == "threestep"
+                     else "") + ": card == cpu", flush=True)
+    if firstfit_rows.launches == 0 or conflict_rows.launches == 0:
+        fail("baselines slice: topology and threestep did not launch K4 and K5")
+    print(f"baselines slice launches: K4 {firstfit_rows.launches}, K5 "
+          f"{conflict_rows.launches}", flush=True)
+    g = build_graph("rmat-g", 0.25)
+    traced = [(g, "data_driven", {}), (g, "data_driven", dict(engine="classic")),
+              (build_graph("rmat-er", 0.05), "distance2", {})]
+    for graph, algorithm, opts in traced:
+        a = color(graph, algorithm, device=dev_cuda, trace=True, **opts)
+        b = color(graph, algorithm, device="cpu", trace=True, **opts)
+        diff = same_result(a, b)
+        if (diff or not np.array_equal(a.trace.steps, b.trace.steps)
+                or a.trace.check(a) or a.trace.iterations != b.trace.iterations):
+            fail(f"baselines slice: traced {algorithm} {opts}: card != cpu: "
+                 f"{diff} {a.trace.check(a)}")
+        print(f"traced {algorithm} {opts} n={graph.n}: {a.trace.steps.shape[0]} "
+              "rows, card == cpu", flush=True)
+    for opts in (dict(max_iters=1), dict(engine="classic", max_iters=1,
+                                         tail_serial=False)):
+        a = color(g, device=dev_cuda, ensure_valid=True, **opts)
+        b = color(g, device="cpu", ensure_valid=True, **opts)
+        if (same_result(a, b) or a.degradations != b.degradations
+                or not a.degradations or not is_valid_coloring(g, a.colors)):
+            fail(f"baselines slice: ensure_valid {opts}: card != cpu: "
+                 f"{a.degradations} {b.degradations}")
+        print(f"ensure_valid {opts}: rungs {[d['rung'] for d in a.degradations]}, "
+              "card == cpu", flush=True)
+
+
 # --------------------------------------------------------------------------
 # phase 9-10: the main paths at full size
 # --------------------------------------------------------------------------
@@ -1490,11 +1570,13 @@ def no_superstep_gathers():
 
 
 def run_full(label, call, kernels, valid, reps: int = 3, what: str = "",
-             guard=no_superstep_gathers) -> dict:
+             guard=no_superstep_gathers, profile: bool = True) -> dict:
     """One main path at full size: the counted run of ``call()`` inside
     ``guard()`` (no tile gathered), then ``reps`` timed runs (after the
     counted one, which warms up) and a profiled one. Prints the allocator's
-    allocations and retries over the timed runs (``torch.cuda.memory_stats``)."""
+    allocations and retries over the timed runs (``torch.cuda.memory_stats``).
+    Returns the counted run's result, its launch counts, the median wall
+    (ms) and the own peak (MiB above what was held before the call)."""
     reset_counts()
     with guard():
         r = call()  # the main path's counted run
@@ -1527,8 +1609,10 @@ def run_full(label, call, kernels, valid, reps: int = 3, what: str = "",
           f"{held / 2**20:.1f} MiB held before the call), launches "
           f"{ {k: c for k, c in counts.items() if c} }; allocations a call {allocs:.0f}, "
           f"allocator retries {retries}")
-    profile_call(call)
-    return {"result": r, "counts": counts}
+    if profile:
+        profile_call(call)
+    return {"result": r, "counts": counts, "ms": statistics.median(walls),
+            "own_peak_mib": (max(peaks) - held) / 2**20}
 
 
 def print_tile_recs(name: str, recs: list):
@@ -1554,6 +1638,7 @@ def check_full(dev_cuda, lat: dict) -> dict:
     totals = {k.__name__: 0 for k in KERNELS}
     times = {}
     graphs = {}
+    ragged = {}  # the default path's median wall and result, for phase 11
     for name, make in FULL.items():
         t = time.perf_counter()
         graphs[name] = g = make()
@@ -1568,9 +1653,15 @@ def check_full(dev_cuda, lat: dict) -> dict:
         for k, c in out["counts"].items():
             totals[k] += c
         r = out["result"]
+        if label == f"ragged {name}":
+            ragged[name] = out
         if label == "ragged rmat-er":
             ids = np.arange(g.n)
+            t = time.perf_counter()
             want = greedy_serial(g, order=np.lexsort((ids, -g.degrees)))
+            out["oracle_ms"] = (time.perf_counter() - t) * 1e3
+            print(f"  serial-greedy oracle (largest degree first, host): "
+                  f"{out['oracle_ms']:.3f} ms, {int(want.max())} colors", flush=True)
             if not np.array_equal(want, r.colors):
                 fail(f"full {label}: colors differ from the serial-greedy "
                      f"oracle in {int((want != r.colors).sum())} vertices")
@@ -1608,7 +1699,7 @@ def check_full(dev_cuda, lat: dict) -> dict:
             print_tile_recs("K3", recs)
             del provider
         torch.cuda.empty_cache()
-    return {"launches": totals, "times": times, "graphs": graphs}
+    return {"launches": totals, "times": times, "graphs": graphs, "ragged": ragged}
 
 
 # (label, graph, options, the kernels this path must launch); the graphs of
@@ -1918,6 +2009,105 @@ def check_d2_full(graphs: dict, dev_cuda, lat: dict) -> dict:
     return {"launches": totals, "times": times}
 
 
+# phase 11: the paper's comparison at full size.  (algorithm, options,
+# kernels its counted run must launch)
+BASELINE_RUNS = [
+    ("topology", {}, (firstfit_rows, conflict_rows)),
+    ("jp", {}, ()),
+    ("multihash", {}, ()),
+    ("threestep", {}, (firstfit_rows, conflict_rows)),
+]
+
+
+def host_cpu() -> str:
+    """The card machine's host CPU: ``lscpu``'s model name, family, model
+    and CPU count (the machine may report its model name as unknown)."""
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=60)
+    except FileNotFoundError:
+        return "not read (no lscpu)"
+    fields = dict(line.split(":", 1) for line in out.stdout.splitlines()
+                  if ":" in line)
+    def field(key):
+        return fields.get(key, "?").strip()
+
+    return (f"{field('Vendor ID')} {field('Model name')} (family "
+            f"{field('CPU family')}, model {field('Model')}), {field('CPU(s)')} CPUs")
+
+
+def check_comparison(graphs: dict, ragged: dict, dev_cuda) -> dict:
+    """``serial``, ``topology``, ``jp``, ``multihash`` and ``threestep``
+    against the default ``data_driven`` path on the paper's three graphs,
+    each valid; the traced default path against the untraced one; the
+    ladder on an unconverged run."""
+    totals = {k.__name__: 0 for k in KERNELS}
+    table = {}
+    for name in PAPER:
+        g = graphs[name]
+        dd = ragged[name]
+        rows = {"data_driven": (dd["ms"], dd["result"].num_colors)}
+        t = time.perf_counter()
+        r = color(g, "serial", device=dev_cuda)
+        rows["serial"] = ((time.perf_counter() - t) * 1e3, r.num_colors)
+        if not is_valid_coloring(g, r.colors):
+            fail(f"comparison {name}: serial coloring is not valid")
+        print(f"comparison serial {name}: one run on the host, "
+              f"{rows['serial'][0]:.3f} ms, colors={r.num_colors}", flush=True)
+        for algorithm, opts, kernels in BASELINE_RUNS:
+            out = run_full(f"{algorithm} {name}",
+                           lambda: color(g, algorithm, device=dev_cuda, **opts),
+                           kernels, lambda c: is_valid_coloring(g, c),
+                           what=str(opts), guard=no_tile_gathers,
+                           profile=algorithm != "threestep")
+            for k, c in out["counts"].items():
+                totals[k] += c
+            res = out["result"]
+            rows[algorithm] = (out["ms"], res.num_colors)
+            if algorithm == "threestep":
+                print(f"  serial_tail {res.serial_tail} of {g.n} vertices fixed on "
+                      "the host", flush=True)
+        table[name] = rows
+    serial_ms = {n: table[n]["serial"][0] for n in PAPER}
+    print(f"comparison (host CPU of serial: {host_cpu()}): colors / serial's, "
+          "data_driven's speedup = that algorithm's ms / data_driven's ms",
+          flush=True)
+    for name in PAPER:
+        rows = table[name]
+        dd_ms, serial_colors = rows["data_driven"][0], rows["serial"][1]
+        for algorithm, (ms, ncol) in rows.items():
+            print(f"  {name:9s} {algorithm:12s} {ms:12.3f} ms {ncol:5d} colors "
+                  f"({ncol / serial_colors:.2f}x serial's), data_driven "
+                  f"{ms / dd_ms:.2f}x faster", flush=True)
+    g = graphs["rmat-er"]
+    off = color(g, device=dev_cuda)
+    on = color(g, device=dev_cuda, trace=True)
+    walls = {"untraced": [], "traced": []}
+    for _ in range(3):
+        for key, trace in (("untraced", False), ("traced", True)):
+            t = time.perf_counter()
+            r = color(g, device=dev_cuda, trace=trace)
+            torch.cuda.synchronize()
+            walls[key].append((time.perf_counter() - t) * 1e3)
+            if not np.array_equal(r.colors, off.colors):
+                fail("comparison: a traced run gave other colors than untraced")
+    if not np.array_equal(on.colors, off.colors) or on.trace.check(on) \
+            or any(getattr(on, f) != getattr(off, f) for f in RESULT_FIELDS):
+        fail(f"comparison: traced rmat-er differs from untraced: {on.trace.check(on)}")
+    print(f"traced rmat-er: {on.trace.iterations} rows {on.trace.steps.tolist()}, "
+          f"check() passes; median {statistics.median(walls['traced']):.3f} ms "
+          f"traced, {statistics.median(walls['untraced']):.3f} ms untraced (of "
+          f"{walls})", flush=True)
+    t = time.perf_counter()
+    r = color(g, device=dev_cuda, ensure_valid=True, max_iters=1)
+    ladder_ms = (time.perf_counter() - t) * 1e3
+    if not (r.converged and r.degradations and is_valid_coloring(g, r.colors)):
+        fail(f"comparison: ensure_valid on rmat-er gave {r.degradations}")
+    print(f"ensure_valid=True, max_iters=1 on rmat-er: {ladder_ms:.3f} ms, rungs "
+          f"{[(d['rung'], d['outcome']) for d in r.degradations]}, colors "
+          f"{r.num_colors}", flush=True)
+    return {"launches": totals, "table": table, "serial_ms": serial_ms}
+
+
 def kernels_record(full: dict) -> list:
     """The kernels' JSON record: launches summed over the main paths'
     counted runs (distance-1 and distance-2), times and bounds at their
@@ -1967,7 +2157,8 @@ def main():
     dev_cuda = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     card = card_line()
-    print(f"device: {kind}; torch {torch.__version__} cuda {torch.version.cuda}")
+    print(f"device: {kind}; torch {torch.__version__} cuda {torch.version.cuda}; "
+          f"host CPU {host_cpu()}")
     print(f"nvidia-smi: {card}", flush=True)
 
     t = time.perf_counter()
@@ -1989,6 +2180,7 @@ def main():
     t0 = time.perf_counter()
     check_slice(dev_cuda)
     check_d2_slice(dev_cuda)
+    check_baselines_slice(dev_cuda)
     print(f"slice took {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     full = check_full(dev_cuda, lat)
@@ -1999,6 +2191,11 @@ def main():
         full["launches"][k] += c
     full["times"].update(d2["times"])
     print(f"full distance-2 took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    comparison = check_comparison(full["graphs"], full["ragged"], dev_cuda)
+    for k, c in comparison["launches"].items():
+        full["launches"][k] += c
+    print(f"comparison took {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = kernels_record(full)
     print(card)

@@ -11,7 +11,8 @@ __version__ = "0.1.0"
 
 _API_NAMES = ("color", "algorithms", "get_algorithm", "register")
 _OPTIONS_NAMES = ("ColorOptions",)
-_ERROR_NAMES = ("ReproError", "CapacityError", "NonConvergenceError")
+_ERROR_NAMES = ("ReproError", "IngestError", "CapacityError",
+                "NonConvergenceError")
 
 
 def __getattr__(name):

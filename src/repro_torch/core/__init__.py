@@ -1,2 +1,44 @@
 """The port's coloring engine: CSR storage, FirstFit, conflict rules, the
-ragged data-driven engine, and the host-side oracle and validator."""
+data-driven engines, the paper's baselines (serial, topology-driven, JP,
+multi-hash, three-step), and the host-side oracle and validators.
+
+Re-exports the ported names of ``repro.core.__all__``; the batched,
+streaming and sharded ones arrive with ROADMAP A7, A9 and A11.  The names
+load on first use (``from repro_torch.core import color_jp``), so importing
+one submodule does not import them all.
+"""
+import importlib
+
+_EXPORTS = {
+    "CSRGraph": "csr",
+    "DeviceCSR": "csr",
+    "DeviceGraph": "csr",
+    "auto_tile_thresholds": "csr",
+    "csr_from_edges": "csr",
+    "next_pow2": "csr",
+    "ColoringResult": "coloring",
+    "color_data_driven": "coloring",
+    "color_fused": "coloring",
+    "color_topology": "topo",
+    "color_jp": "jp",
+    "color_multihash": "jp",
+    "color_threestep": "threestep",
+    "color_serial": "serial",
+    "greedy_serial": "serial",
+    "is_valid_coloring": "validate",
+    "num_colors": "validate",
+    "quality_report": "validate",
+}
+
+__all__ = list(_EXPORTS)
+
+
+def __getattr__(name):
+    if name in _EXPORTS:
+        module = importlib.import_module(f"repro_torch.core.{_EXPORTS[name]}")
+        return getattr(module, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(list(globals()) + __all__)

@@ -35,6 +35,14 @@ same order: a class sub-step's first chunk reads the iteration-start
 snapshot (cloned when several classes share a step), later chunks read the
 accumulating state, and every gather is taken before the write it feeds.
 
+``trace=`` records one telemetry row per super-step, ``repro``'s rows
+field for field (``repro_torch.obs``), in a ``HostRing``.  The loops here
+are host loops that already read each step's live counts; the only other
+field, the step's maximum colour, is kept as a 0-d tensor on the device
+and read with the rest at the end, so a traced step takes no host sync
+beyond the untraced one.  ``trace=False`` runs the untraced code
+unchanged.
+
 Options outside the ported slices raise ``NotImplementedError`` naming the
 ROADMAP item that brings them.
 """
@@ -72,6 +80,13 @@ from repro_torch.kernels.superstep.csr_kernel import (
     superstep_csr,
 )
 from repro_torch.kernels.superstep.kernel import superstep_rows
+from repro_torch.obs.spans import SpanRecorder, jit_span, span
+from repro_torch.obs.trace import (
+    HostRing,
+    assemble_trace,
+    empty_trace,
+    resolve_trace_cap,
+)
 
 __all__ = [
     "ColoringResult",
@@ -91,6 +106,7 @@ __all__ = [
     "run_workefficient_loop",
     "serial_tail_step",
     "sgr_step",
+    "traced_run",
 ]
 
 # Adaptive tail-serialization: the worklist "stalls" when a super-step
@@ -110,6 +126,12 @@ class ColoringResult:
     # ``(width, cells)`` per degree class that dispatched work, plus a final
     # full-width entry for the serial tail; partitions ``padded_work``
     class_cells: tuple = ()
+    # a ``repro_torch.obs.RunTrace`` when the run was traced (``trace=``)
+    trace: object = None
+    # every deviation from the clean path, as JSON-safe dicts with a "stage"
+    # key: ingest repairs (``validate_input=``) and guarantee-ladder rungs
+    # (``ensure_valid=``); empty on a healthy run
+    degradations: tuple = ()
 
     @property
     def num_colors(self) -> int:
@@ -488,6 +510,7 @@ def run_ragged_engine(
     algorithm: str = "data_driven_sgr",
     pack_degrees: bool = False,
     colors_init=None,
+    trace=False,
 ) -> ColoringResult:
     """Drive the rotated super-step to convergence over degree-tiled classes.
 
@@ -497,7 +520,9 @@ def run_ragged_engine(
     ``tail_threshold`` or the worklist stalls, the rest goes to ONE serial
     tail over the full-width rows; a stall discards the speculation and
     re-greedies the whole graph.  ``mode`` picks the re-sliced
-    (``workefficient``) or full-capacity (``fused``) schedule.
+    (``workefficient``) or full-capacity (``fused``) schedule.  ``trace``
+    (``True`` or a ring capacity) attaches a ``RunTrace`` of one row per
+    super-step, as ``repro`` records them.
     """
     if colors_init is not None:
         raise NotImplementedError(
@@ -525,24 +550,42 @@ def run_ragged_engine(
         colors_ext[:n] = 1
         boot_iters = 1
     wls = [torch.from_numpy(np.asarray(c, np.int32)).to(device) for c in classes]
+    trace_cap = resolve_trace_cap(trace, max_iters)
+    rows = HostRing(trace_cap) if trace_cap else None
+    if rows is not None and boot_iters:
+        rows.append(n, 0, n, 1, 0)
     run = _run_ragged_fused if mode == "fused" else _run_ragged_workefficient
-    return run(n, provider, deg_ext, wls, tile_widths, acc_widths, tail_width,
-               colors_ext, boot_iters, heuristic, kind, coarsen, coarsen_lanes,
-               tail_enabled, tail_threshold, max_iters, algorithm, pack_degrees)
+    result = run(n, provider, deg_ext, wls, tile_widths, acc_widths, tail_width,
+                 colors_ext, boot_iters, heuristic, kind, coarsen, coarsen_lanes,
+                 tail_enabled, tail_threshold, max_iters, algorithm, pack_degrees,
+                 rows)
+    if rows is not None:
+        result.trace = assemble_trace(rows.rows(), result.iterations, trace_cap,
+                                      f"{algorithm}:{mode}")
+    return result
 
 
-def _run_tail(provider, deg_ext, colors_ext, tail, tail_width: int):
-    """Order ``tail`` and run the serial tail over it; returns
-    ``(colors_ext, tail_cells)``."""
-    tail_wl = order_tail(tail, deg_ext)
-    colors_ext = _dispatch_tail(provider, colors_ext, tail_wl, width=tail_width)
-    return colors_ext, int(tail_wl.shape[0]) * tail_width
+def _run_tail(provider, deg_ext, colors_ext, tail, tail_width: int, total: int,
+              stalled: bool, rows):
+    """Order ``tail`` and run the serial tail over it, the ``total`` live
+    entries it drains recorded on ``rows``; returns ``(colors_ext,
+    tail_cells)``."""
+    with span("serial_tail", live=total, stalled=stalled):
+        tail_wl = order_tail(tail, deg_ext)
+        colors_ext = _dispatch_tail(provider, colors_ext, tail_wl,
+                                    width=tail_width)
+    tail_cells = int(tail_wl.shape[0]) * tail_width
+    if rows is not None:
+        # the tail drains the live worklist; a stall-serialization also
+        # re-greedies settled vertices, which shows in cells, not in live
+        rows.append(total, total, 0, colors_ext.max(), tail_cells, tail=1)
+    return colors_ext, tail_cells
 
 
 def _run_ragged_workefficient(
     n, provider, deg_ext, wls, tile_widths, acc_widths, tail_width,
     colors_ext, boot_iters, heuristic, kind, coarsen, coarsen_lanes,
-    tail_enabled, tail_threshold, max_iters, algorithm, pack_degrees,
+    tail_enabled, tail_threshold, max_iters, algorithm, pack_degrees, rows,
 ):
     """The host loop: each class re-sliced to the next pow2 of its count."""
     K = len(wls)
@@ -555,30 +598,42 @@ def _run_ragged_workefficient(
     total = sum(counts)
     prev = total
     stalled = False
-    while total > 0 and iters < max_iters:
-        if tail_enabled and total <= tail_threshold:
-            break
-        if tail_enabled and _stalled(iters, total, prev):
-            stalled = True
-            break
-        prev = total
-        sliced, chunk_l = [], []
-        for k in range(K):
-            cap = min(next_pow2(max(counts[k], 1)), caps[k])
-            sliced.append(wls[k][:cap])
-            chunk_l.append(max(1, math.ceil(cap / coarsen_lanes))
-                           if coarsen_lanes else coarsen)
-            work += counts[k]
-            if counts[k]:
-                padded += cap * acc_widths[k]
-                cells_k[k] += cap * acc_widths[k]
-        colors_ext, wls, cnts = _tiled_superstep(
-            provider, deg_ext, colors_ext, sliced, widths=tile_widths,
-            heuristic=heuristic, kind=kind, chunks=chunk_l,
-            pack_degrees=pack_degrees)
-        counts = [int(c) for c in cnts]
-        iters += 1
-        total = sum(counts)
+    with span("superstep_loop", mode="workefficient"):
+        while total > 0 and iters < max_iters:
+            if tail_enabled and total <= tail_threshold:
+                break
+            if tail_enabled and _stalled(iters, total, prev):
+                stalled = True
+                break
+            prev = total
+            sliced, chunk_l = [], []
+            step_cells = 0
+            for k in range(K):
+                cap = min(next_pow2(max(counts[k], 1)), caps[k])
+                sliced.append(wls[k][:cap])
+                chunk_l.append(max(1, math.ceil(cap / coarsen_lanes))
+                               if coarsen_lanes else coarsen)
+                work += counts[k]
+                if counts[k]:
+                    padded += cap * acc_widths[k]
+                    cells_k[k] += cap * acc_widths[k]
+                    step_cells += cap * acc_widths[k]
+            shapes = tuple(int(w.shape[0]) for w in sliced)
+            with jit_span("superstep", ("tiled", type(provider).__name__, shapes,
+                                        tuple(tile_widths), heuristic, kind,
+                                        provider.device.type, tuple(chunk_l),
+                                        pack_degrees, n)):
+                colors_ext, wls, cnts = _tiled_superstep(
+                    provider, deg_ext, colors_ext, sliced, widths=tile_widths,
+                    heuristic=heuristic, kind=kind, chunks=chunk_l,
+                    pack_degrees=pack_degrees)
+            counts = [int(c) for c in cnts]
+            iters += 1
+            new_total = sum(counts)
+            if rows is not None:
+                rows.append(total, total - new_total, new_total,
+                            colors_ext.max(), step_cells)
+            total = new_total
     converged = total == 0
     tail_cells = 0
     if total > 0 and iters < max_iters and tail_enabled:
@@ -591,8 +646,8 @@ def _run_ragged_workefficient(
             tail = torch.full((min(next_pow2(total), n),), n, dtype=torch.int32,
                               device=colors_ext.device)
             tail[:total] = live
-        colors_ext, tail_cells = _run_tail(provider, deg_ext, colors_ext,
-                                           tail, tail_width)
+        colors_ext, tail_cells = _run_tail(provider, deg_ext, colors_ext, tail,
+                                           tail_width, total, stalled, rows)
         work += n if stalled else total
         padded += tail_cells
         iters += 1
@@ -607,7 +662,7 @@ def _run_ragged_workefficient(
 def _run_ragged_fused(
     n, provider, deg_ext, wls, tile_widths, acc_widths, tail_width,
     colors_ext, boot_iters, heuristic, kind, coarsen, coarsen_lanes,
-    tail_enabled, tail_threshold, max_iters, algorithm, pack_degrees,
+    tail_enabled, tail_threshold, max_iters, algorithm, pack_degrees, rows,
 ):
     """``repro``'s single-program schedule (``_fused_spec_loop``) as a host
     loop: every step dispatches every class at full capacity, so the work
@@ -619,23 +674,33 @@ def _run_ragged_fused(
     chunks = [coarsen] * K
     if coarsen_lanes:
         chunks = [max(1, math.ceil(c / coarsen_lanes)) for c in caps]
+    cells_per_step = sum(c * w for c, w in zip(caps, acc_widths))
+    loop_key = ("fused_spec", type(provider).__name__, tuple(caps),
+                tuple(tile_widths), heuristic, kind, provider.device.type,
+                tuple(chunks), tail_enabled, max_iters, boot_iters,
+                pack_degrees, n, 0 if rows is None else rows.cap)
     counts = list(caps)
     it, work, prev = boot_iters, 0, init_total
-    while True:
-        total = sum(counts)
-        go = total > 0 and it < max_iters
-        if tail_enabled:
-            go = go and total > tail_threshold and not _stalled(it, total, prev)
-        if not go:
-            break
-        prev = total
-        colors_ext, wls, cnts = _tiled_superstep(
-            provider, deg_ext, colors_ext, wls, widths=tile_widths,
-            heuristic=heuristic, kind=kind, chunks=chunks,
-            pack_degrees=pack_degrees)
-        counts = [int(c) for c in cnts]
-        it += 1
-        work += sum(counts)
+    with span("superstep_loop", mode="fused"), jit_span("fused_spec_loop",
+                                                        loop_key):
+        while True:
+            total = sum(counts)
+            go = total > 0 and it < max_iters
+            if tail_enabled:
+                go = go and total > tail_threshold and not _stalled(it, total, prev)
+            if not go:
+                break
+            prev = total
+            colors_ext, wls, cnts = _tiled_superstep(
+                provider, deg_ext, colors_ext, wls, widths=tile_widths,
+                heuristic=heuristic, kind=kind, chunks=chunks,
+                pack_degrees=pack_degrees)
+            counts = [int(c) for c in cnts]
+            it += 1
+            work += sum(counts)
+            if rows is not None:
+                rows.append(prev, prev - sum(counts), sum(counts),
+                            colors_ext.max(), cells_per_step)
     total = sum(counts)
     iters = it
     work_items = work + init_total
@@ -650,8 +715,8 @@ def _run_ragged_fused(
             tail = torch.arange(n, dtype=torch.int32, device=colors_ext.device)
         else:
             tail = torch.cat(wls) if K > 1 else wls[0]
-        colors_ext, tail_cells = _run_tail(provider, deg_ext, colors_ext,
-                                           tail, tail_width)
+        colors_ext, tail_cells = _run_tail(provider, deg_ext, colors_ext, tail,
+                                           tail_width, total, stalled, rows)
         work_items += n if stalled else total
         padded += tail_cells
         iters += 1
@@ -670,20 +735,30 @@ def _run_ragged_fused(
 # (colors_ext, wl, count)``.  The classic engine instantiates them with
 # ``sgr_step``.
 
-def run_fused_loop(step, colors_ext, wl0, count0, max_iters: int):
+def run_fused_loop(step, colors_ext, wl0, count0, max_iters: int,
+                   trace_cap: int = 0, cells_per_step: int = 0):
     """Full-capacity steps until the worklist empties or ``max_iters``.
 
     Returns ``(colors_ext, wl, count, iters, work)`` where ``work`` is the
     sum of post-step live counts (the first full-capacity step is charged by
-    the caller, matching the paper's work accounting).
+    the caller, matching the paper's work accounting).  With ``trace_cap >
+    0`` one trace row a step is kept in a ring of that capacity, returned as
+    a sixth element (``rows()`` gives them in step order).
     """
     wl, count = wl0, int(count0)
     it = work = 0
+    rows = HostRing(trace_cap) if trace_cap else None
     while count > 0 and it < max_iters:
+        prev = count
         colors_ext, wl, cnt = step(colors_ext, wl)
         count = int(cnt)
         it += 1
         work += count
+        if rows is not None:
+            rows.append(prev, prev - count, count, colors_ext.max(),
+                        cells_per_step)
+    if rows is not None:
+        return colors_ext, wl, count, it, work, rows
     return colors_ext, wl, count, it, work
 
 
@@ -814,7 +889,8 @@ def _prepare(g: CSRGraph, buckets, device):
 
 
 def _color_classic(g, heuristic, firstfit, coarsen_ff, coarsen_cr,
-                   coarsen_lanes, buckets, mode, max_iters, reuse_rows, device):
+                   coarsen_lanes, buckets, mode, max_iters, reuse_rows, device,
+                   trace_cap=0):
     """The two-phase engine (FirstFit kernel + ConflictResolve kernel)."""
     n = g.n
     adjs, deg_ext, classes = _prepare(g, buckets, device)
@@ -824,7 +900,8 @@ def _color_classic(g, heuristic, firstfit, coarsen_ff, coarsen_cr,
             raise ValueError(
                 "classic fused mode runs single-class (full-width) only")
         return _run_fused(n, adjs[0], deg_ext, colors_ext, heuristic, firstfit,
-                          coarsen_ff, coarsen_cr, max_iters, reuse_rows)
+                          coarsen_ff, coarsen_cr, max_iters, reuse_rows,
+                          trace_cap)
     if mode != "workefficient":
         raise ValueError(f"unknown mode {mode!r}")
 
@@ -833,39 +910,59 @@ def _color_classic(g, heuristic, firstfit, coarsen_ff, coarsen_cr,
     wls = [torch.from_numpy(ids).to(device) for ids in classes]
     counts = [int(ids.shape[0]) for ids in classes]
     iters = work = padded = 0
-    while sum(counts) > 0 and iters < max_iters:
-        new_wls, new_counts = [], []
-        for k, (wl, count, adj_k) in enumerate(zip(wls, counts, adjs)):
-            if count == 0:
-                new_wls.append(wl[:1])
-                new_counts.append(0)
-                continue
-            cap = min(next_pow2(count), wl.shape[0])
-            if coarsen_lanes:
-                coarsen_ff = max(1, math.ceil(cap / coarsen_lanes))
-            colors_ext, wl_out, cnt = sgr_step(
-                adj_k, deg_ext, colors_ext, wl[:cap], heuristic=heuristic,
-                kind=firstfit, coarsen_ff=coarsen_ff, coarsen_cr=coarsen_cr,
-                reuse_rows=reuse_rows)
-            work += count
-            padded += cap * widths[k]
-            new_wls.append(wl_out)
-            new_counts.append(int(cnt))
-        wls, counts = new_wls, new_counts
-        iters += 1
-    return ColoringResult(colors_ext[:n].cpu().numpy(), iters, work, padded,
-                          converged=sum(counts) == 0)
+    rows = HostRing(trace_cap) if trace_cap else None
+    with span("superstep_loop", mode=mode):
+        while sum(counts) > 0 and iters < max_iters:
+            live_in = sum(counts)
+            step_cells = 0
+            new_wls, new_counts = [], []
+            for k, (wl, count, adj_k) in enumerate(zip(wls, counts, adjs)):
+                if count == 0:
+                    new_wls.append(wl[:1])
+                    new_counts.append(0)
+                    continue
+                cap = min(next_pow2(count), wl.shape[0])
+                if coarsen_lanes:
+                    coarsen_ff = max(1, math.ceil(cap / coarsen_lanes))
+                colors_ext, wl_out, cnt = sgr_step(
+                    adj_k, deg_ext, colors_ext, wl[:cap], heuristic=heuristic,
+                    kind=firstfit, coarsen_ff=coarsen_ff, coarsen_cr=coarsen_cr,
+                    reuse_rows=reuse_rows)
+                work += count
+                padded += cap * widths[k]
+                step_cells += cap * widths[k]
+                new_wls.append(wl_out)
+                new_counts.append(int(cnt))
+            wls, counts = new_wls, new_counts
+            iters += 1
+            if rows is not None:
+                new_total = sum(counts)
+                rows.append(live_in, live_in - new_total, new_total,
+                            colors_ext.max(), step_cells)
+    result = ColoringResult(colors_ext[:n].cpu().numpy(), iters, work, padded,
+                            converged=sum(counts) == 0)
+    if rows is not None:
+        result.trace = assemble_trace(rows.rows(), iters, trace_cap,
+                                      "classic:workefficient")
+    return result
 
 
 def _run_fused(n, adj, deg_ext, colors_ext, heuristic, kind, coarsen_ff,
-               coarsen_cr, max_iters, reuse_rows=False):
+               coarsen_cr, max_iters, reuse_rows=False, trace_cap=0):
     step = partial(sgr_step, adj, deg_ext, heuristic=heuristic, kind=kind,
                    coarsen_ff=coarsen_ff, coarsen_cr=coarsen_cr,
                    reuse_rows=reuse_rows)
     wl0 = torch.arange(n, dtype=torch.int32, device=colors_ext.device)
-    colors_ext, _, count, it, work = run_fused_loop(step, colors_ext, wl0, n,
-                                                    max_iters)
-    return fused_result(colors_ext, n, count, it, work, width=int(adj.shape[1]))
+    width = int(adj.shape[1])
+    with span("superstep_loop", mode="fused"):
+        out = run_fused_loop(step, colors_ext, wl0, n, max_iters,
+                             trace_cap=trace_cap, cells_per_step=n * width)
+    colors_ext, _, count, it, work = out[:5]
+    result = fused_result(colors_ext, n, count, it, work, width=width)
+    if trace_cap:
+        result.trace = assemble_trace(out[5].rows(), it, trace_cap,
+                                      "classic:fused")
+    return result
 
 
 # --------------------------------------------------------------------------
@@ -898,9 +995,11 @@ def color_data_driven(
     same schedule over the dense table) or ``classic`` (the two-phase
     super-step); ``mode`` is ``workefficient`` or ``fused``.  ``device``
     defaults to ``"cuda"``, where the engines launch K1–K5; ``device="cpu"``
-    runs their plain versions.  Results equal ``repro.color(g, ...)``'s
-    field for field (colors, iterations, work_items, padded_work,
-    class_cells, converged, algorithm).
+    runs their plain versions.  ``trace`` (``True`` or a ring capacity)
+    attaches a ``RunTrace`` with the phase spans.  Results equal
+    ``repro.color(g, ...)``'s field for field (colors, iterations,
+    work_items, padded_work, class_cells, converged, algorithm, the trace's
+    rows).
     """
     device = resolve_backend(backend, device)
     if engine == "sharded":
@@ -910,47 +1009,69 @@ def color_data_driven(
         raise ValueError(
             f"unknown engine {engine!r}; options: ragged, padded, classic, "
             "sharded")
-    if trace:
-        raise NotImplementedError("trace= telemetry is not ported yet (ROADMAP A6)")
     if heuristic not in HEURISTICS:
         raise ValueError(f"unknown heuristic {heuristic!r}; options: {HEURISTICS}")
     if firstfit not in FF_FUNCS:
         raise ValueError(f"unknown firstfit {firstfit!r}; options: {sorted(FF_FUNCS)}")
     n = g.n
     if n == 0:
-        return ColoringResult(np.zeros(0, np.int32), 0, 0, 0, True)
+        result = ColoringResult(np.zeros(0, np.int32), 0, 0, 0, True)
+        if trace:
+            result.trace = empty_trace("data_driven_sgr")
+        return result
     max_iters = max_iters or n + 1
-    if engine == "classic":
-        return _color_classic(g, heuristic, firstfit, coarsen_ff, coarsen_cr,
-                              coarsen_lanes, buckets, mode, max_iters,
-                              reuse_rows, device)
-    classes, widths = _resolve_classes(g.degrees, buckets, tiling)
-    dmax = max(g.max_degree, 1)
-    csr = _device_csr(g, device)
-    if engine == "ragged":
-        provider, tile_widths, acc_widths = csr, widths, widths
-    else:
-        provider = DenseRows(_dense_adjacency(g, device), csr)
-        tile_widths, acc_widths = [None] * len(widths), [dmax] * len(widths)
-    tail_enabled, thr = resolve_tail_threshold(tail_serial, n)
-    return run_ragged_engine(
-        n=n,
-        provider=provider,
-        deg_ext=csr.deg_ext,
-        classes=classes,
-        tile_widths=tile_widths,
-        acc_widths=acc_widths,
-        tail_width=dmax,
-        mode=mode,
-        heuristic=heuristic,
-        kind=firstfit,
-        coarsen=max(int(coarsen_ff), int(coarsen_cr)),
-        coarsen_lanes=coarsen_lanes,
-        tail_enabled=tail_enabled,
-        tail_threshold=thr,
-        max_iters=max_iters,
-        pack_degrees=packed_gather_ok(dmax),
-    )
+
+    def run():
+        if engine == "classic":
+            return _color_classic(g, heuristic, firstfit, coarsen_ff,
+                                  coarsen_cr, coarsen_lanes, buckets, mode,
+                                  max_iters, reuse_rows, device,
+                                  trace_cap=resolve_trace_cap(trace, max_iters))
+        with span("partition_plan"):
+            classes, widths = _resolve_classes(g.degrees, buckets, tiling)
+        dmax = max(g.max_degree, 1)
+        with span("csr_build", engine=engine):
+            csr = _device_csr(g, device)
+            if engine == "ragged":
+                provider, tile_widths, acc_widths = csr, widths, widths
+            else:
+                provider = DenseRows(_dense_adjacency(g, device), csr)
+                tile_widths = [None] * len(widths)
+                acc_widths = [dmax] * len(widths)
+        tail_enabled, thr = resolve_tail_threshold(tail_serial, n)
+        return run_ragged_engine(
+            n=n,
+            provider=provider,
+            deg_ext=csr.deg_ext,
+            classes=classes,
+            tile_widths=tile_widths,
+            acc_widths=acc_widths,
+            tail_width=dmax,
+            mode=mode,
+            heuristic=heuristic,
+            kind=firstfit,
+            coarsen=max(int(coarsen_ff), int(coarsen_cr)),
+            coarsen_lanes=coarsen_lanes,
+            tail_enabled=tail_enabled,
+            tail_threshold=thr,
+            max_iters=max_iters,
+            pack_degrees=packed_gather_ok(dmax),
+            trace=trace,
+        )
+
+    return traced_run(run, trace)
+
+
+def traced_run(run, trace) -> ColoringResult:
+    """``run()``; with ``trace`` inside a recorder of its own, whose spans
+    land on ``result.trace.spans`` (an outer recorder still sees them)."""
+    if not trace:
+        return run()
+    with SpanRecorder() as rec:
+        result = run()
+    if result.trace is not None:
+        result.trace.spans = rec.events
+    return result
 
 
 @register("fused")

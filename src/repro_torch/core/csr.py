@@ -25,6 +25,7 @@ from repro_torch.kernels.cuda import CsrRows
 __all__ = [
     "CSRGraph",
     "DeviceCSR",
+    "DeviceGraph",
     "auto_tile_thresholds",
     "compose_pairs",
     "csr_from_edges",
@@ -355,3 +356,33 @@ class DeviceCSR:
         if v >= n:
             return torch.full_like(vals, n)
         return torch.where(lane < deg, vals, n)
+
+
+class DeviceGraph:
+    """Device-side padded-adjacency graph (the dense-table algorithms'
+    storage: topology, JP, multi-hash, three-step).
+
+    ``adj``      (n, D) int32, sentinel ``n`` in padding lanes
+    ``degrees``  (n+1,) int32, sentinel slot holds 0
+    """
+
+    def __init__(self, adj, degrees, n: int):
+        self.adj = adj
+        self.degrees = degrees
+        self.n = int(n)
+        self.D = int(adj.shape[1])
+
+    @classmethod
+    def from_csr(cls, g: CSRGraph, device, width: int | None = None) -> "DeviceGraph":
+        """The table and degrees of ``g`` on ``device``.  At the natural
+        width they come from the graph's device cache, so the classic
+        engine and the dense-table algorithms share one upload."""
+        from repro_torch.core.coloring import _dense_adjacency, _device_csr
+
+        device = torch.device(device)
+        deg = _device_csr(g, device).deg_ext
+        if width is None or int(width) == max(g.max_degree, 1):
+            adj = _dense_adjacency(g, device)
+        else:
+            adj = torch.from_numpy(g.padded_adjacency(width)).to(device)
+        return cls(adj, deg, g.n)

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.api import register
-from repro_torch.core.coloring import ColoringResult
+from repro_torch.core.coloring import ColoringResult, traced_run
 from repro_torch.core.csr import (
     CSRGraph,
     DeviceCSR,
@@ -33,13 +33,15 @@ from repro_torch.core.csr import (
 from repro_torch.d2.coloring import (
     DEFAULT_D2_BUDGET,
     TwoHopRows,
-    check_d2_options,
+    check_d2_engine,
     degrees_ext,
     resolve_strategy,
     run_d2_engine,
 )
 from repro_torch.errors import NonConvergenceError
 from repro_torch.kernels.dispatch import resolve_backend
+from repro_torch.obs.spans import span
+from repro_torch.obs.trace import empty_trace
 
 __all__ = [
     "BipartiteGraph",
@@ -176,35 +178,46 @@ def color_bipartite(
     columns sharing a row share a color (``d2.validate_bipartite``).  The
     precomputed strategy colors the column-conflict graph's CSR (K1, K2 on
     the card), the on-the-fly strategy composes the cols→rows→cols gathers
-    (K3, K2).  Results equal ``repro.d2.color_bipartite``'s field for field;
-    ``engine="sharded"`` (A11) and ``trace=`` (A6) raise.
+    (K3, K2).  ``trace`` attaches a ``RunTrace`` with the phase spans.
+    Results equal ``repro.d2.color_bipartite``'s field for field;
+    ``engine="sharded"`` raises (ROADMAP A11).
     """
     device = resolve_backend(backend, device)
-    check_d2_options(engine, trace)
+    check_d2_engine(engine)
     nc = bg.n_cols
     if nc == 0:
-        return ColoringResult(np.zeros(0, np.int32), 0, 0, 0, True,
-                              algorithm="bipartite_partial_sgr")
+        result = ColoringResult(np.zeros(0, np.int32), 0, 0, 0, True,
+                                algorithm="bipartite_partial_sgr")
+        if trace:
+            result.trace = empty_trace("bipartite_partial_sgr")
+        return result
     max_iters = max_iters or nc + 1
-    deg_ext = degrees_ext(bg.col_degrees, device)
-    if _resolve_bipartite_strategy(bg, strategy, memory_budget) == "precomputed":
-        cg = bg.column_conflict_graph()
-        provider = DeviceCSR.from_csr(cg, device)
-        degrees_for_tiling = cg.degrees
-    else:
-        cols2rows, rows2cols = bg.padded_halves()
-        provider = TwoHopRows(torch.from_numpy(cols2rows).to(device),
-                              torch.from_numpy(rows2cols).to(device),
-                              include_first_hop=False)
-        degrees_for_tiling = None
-    return run_d2_engine(
-        n=nc, provider=provider, deg_ext=deg_ext, tiling=tiling,
-        degrees_for_tiling=degrees_for_tiling, mode=mode,
-        heuristic=heuristic, kind=firstfit, coarsen=coarsen,
-        tail_serial=tail_serial, max_iters=max_iters,
-        algorithm="bipartite_partial_sgr",
-        deg_bound=int(bg.col_degrees.max(initial=0)),
-    )
+    strategy = _resolve_bipartite_strategy(bg, strategy, memory_budget)
+
+    def run():
+        deg_ext = degrees_ext(bg.col_degrees, device)
+        if strategy == "precomputed":
+            with span("csr_build", engine="bipartite_precomputed"):
+                cg = bg.column_conflict_graph()
+                provider = DeviceCSR.from_csr(cg, device)
+            degrees_for_tiling = cg.degrees
+        else:
+            with span("csr_build", engine="bipartite_onthefly"):
+                cols2rows, rows2cols = bg.padded_halves()
+                provider = TwoHopRows(torch.from_numpy(cols2rows).to(device),
+                                      torch.from_numpy(rows2cols).to(device),
+                                      include_first_hop=False)
+            degrees_for_tiling = None
+        return run_d2_engine(
+            n=nc, provider=provider, deg_ext=deg_ext, tiling=tiling,
+            degrees_for_tiling=degrees_for_tiling, mode=mode,
+            heuristic=heuristic, kind=firstfit, coarsen=coarsen,
+            tail_serial=tail_serial, max_iters=max_iters,
+            algorithm="bipartite_partial_sgr",
+            deg_bound=int(bg.col_degrees.max(initial=0)), trace=trace,
+        )
+
+    return traced_run(run, trace)
 
 
 # --------------------------------------------------------------------------
@@ -245,11 +258,12 @@ def compress_jacobian_pattern(pattern, *, on_fail: str = "ladder",
     ``color_bipartite``.
 
     A run that exhausts ``max_iters`` before converging would leave
-    uncolored columns out of every group.  ``on_fail="raise"`` refuses it
-    with ``NonConvergenceError``; ``on_fail="ladder"`` (``repro``'s default)
-    would repair it through the guarantee ladder, which is not ported yet:
-    such a run raises ``NotImplementedError`` naming ROADMAP A10.  A run
-    that converges is the same under both.
+    uncolored columns out of every group.  ``on_fail="ladder"`` (the
+    default) escalates it through the guarantee ladder on the
+    column-conflict graph (``core.guarantee``; every rung recorded in
+    ``result.coloring.degradations``, reruns on the caller's device), so
+    the partition is always total; ``on_fail="raise"`` refuses it with
+    ``NonConvergenceError``.
     """
     if on_fail not in ("ladder", "raise"):
         raise ValueError(
@@ -268,11 +282,11 @@ def compress_jacobian_pattern(pattern, *, on_fail: str = "ladder",
             f"column partition"
         )
     if not result.converged:
-        raise NotImplementedError(
-            f"bipartite coloring did not converge after {result.iterations} "
-            "super-steps, and on_fail='ladder' needs the guarantee ladder, "
-            "which is not ported yet (ROADMAP A10); pass on_fail='raise' or "
-            "a larger max_iters")
+        from repro_torch.core.guarantee import ensure_valid_result, rung_options
+
+        result = ensure_valid_result(
+            bg.column_conflict_graph(), result,
+            lambda rung: color_bipartite(bg, **rung_options(opts, rung)))
     groups = [
         np.where(result.colors == c)[0].astype(np.int32)
         for c in range(1, result.num_colors + 1)

@@ -38,6 +38,7 @@ from repro_torch.core.coloring import (
     gather_rows,
     resolve_tail_threshold,
     run_ragged_engine,
+    traced_run,
 )
 from repro_torch.core.csr import CSRGraph, DeviceCSR
 from repro_torch.ingest import packed_gather_ok
@@ -45,6 +46,8 @@ from repro_torch.kernels.cuda import TwoHopLanes
 from repro_torch.kernels.d2.kernel import d2_firstfit
 from repro_torch.kernels.dispatch import resolve_backend
 from repro_torch.kernels.superstep.kernel import two_hop_tile
+from repro_torch.obs.spans import span
+from repro_torch.obs.trace import empty_trace
 
 __all__ = ["color_distance2", "d2_sgr_step", "TwoHopRows", "DEFAULT_D2_BUDGET"]
 
@@ -196,6 +199,7 @@ def d2_sgr_step(
 def run_d2_engine(
     *, n, provider, deg_ext, tiling, degrees_for_tiling, mode, heuristic,
     kind, coarsen, tail_serial, max_iters, algorithm, deg_bound: int = 2**15,
+    trace=False,
 ) -> ColoringResult:
     """Drive the rotated engine over a D2 row provider (shared with
     bipartite).
@@ -225,6 +229,7 @@ def run_d2_engine(
         # colors <= tail_width + 1; the loser rule's degrees are bounded by
         # deg_bound (the caller's original or column degrees)
         pack_degrees=packed_gather_ok(max(tail_width, deg_bound)),
+        trace=trace,
     )
 
 
@@ -247,15 +252,14 @@ def resolve_d2_strategy(g: CSRGraph, strategy: str, budget: int) -> str:
                             budget)
 
 
-def check_d2_options(engine: str, trace) -> None:
-    """The options ``color_distance2`` and ``color_bipartite`` do not port."""
+def check_d2_engine(engine: str) -> None:
+    """``color_distance2`` and ``color_bipartite`` run the ragged engine;
+    the sharded one is not ported."""
     if engine == "sharded":
         raise NotImplementedError(
             "engine='sharded' is not ported yet (ROADMAP A11)")
     if engine != "ragged":
         raise ValueError(f"unknown engine {engine!r}; options: ragged, sharded")
-    if trace:
-        raise NotImplementedError("trace= telemetry is not ported yet (ROADMAP A6)")
 
 
 def degrees_ext(degrees: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -288,31 +292,41 @@ def color_distance2(
     ``strategy="auto"`` precomputes the G² CSR when its estimated footprint
     fits ``memory_budget``, else composes the two hops on the fly per
     super-step.  ``coarsen`` chunks the worklist.  ``device`` defaults to
-    ``"cuda"``; ``device="cpu"`` runs the kernels' plain versions.  Results
-    equal ``repro.d2.color_distance2``'s field for field.  ``devices`` is
-    accepted for ``repro``'s signature and only matters to the sharded
-    engine, which raises (ROADMAP A11), as ``trace=`` does (A6).
+    ``"cuda"``; ``device="cpu"`` runs the kernels' plain versions.
+    ``trace`` attaches a ``RunTrace`` with the phase spans.  Results equal
+    ``repro.d2.color_distance2``'s field for field.  ``devices`` is accepted
+    for ``repro``'s signature and only matters to the sharded engine, which
+    raises (ROADMAP A11).
     """
     device = resolve_backend(backend, device)
-    check_d2_options(engine, trace)
+    check_d2_engine(engine)
     n = g.n
     if n == 0:
-        return ColoringResult(np.zeros(0, np.int32), 0, 0, 0, True,
-                              algorithm="distance2_sgr")
+        result = ColoringResult(np.zeros(0, np.int32), 0, 0, 0, True,
+                                algorithm="distance2_sgr")
+        if trace:
+            result.trace = empty_trace("distance2_sgr")
+        return result
     max_iters = max_iters or n + 1
-    deg_ext = degrees_ext(g.degrees, device)
-    if resolve_d2_strategy(g, strategy, memory_budget) == "precomputed":
-        g2 = g.square()
-        provider = DeviceCSR.from_csr(g2, device)
-        degrees_for_tiling = g2.degrees
-    else:
-        adj = _dense_adjacency(g, device)
-        provider = TwoHopRows(adj, adj, include_first_hop=True)
-        degrees_for_tiling = None
-    return run_d2_engine(
-        n=n, provider=provider, deg_ext=deg_ext, tiling=tiling,
-        degrees_for_tiling=degrees_for_tiling, mode=mode,
-        heuristic=heuristic, kind=firstfit, coarsen=coarsen,
-        tail_serial=tail_serial, max_iters=max_iters,
-        algorithm="distance2_sgr", deg_bound=g.max_degree,
-    )
+
+    def run():
+        deg_ext = degrees_ext(g.degrees, device)
+        if resolve_d2_strategy(g, strategy, memory_budget) == "precomputed":
+            with span("csr_build", engine="d2_precomputed"):
+                g2 = g.square()
+                provider = DeviceCSR.from_csr(g2, device)
+            degrees_for_tiling = g2.degrees
+        else:
+            with span("csr_build", engine="d2_onthefly"):
+                adj = _dense_adjacency(g, device)
+                provider = TwoHopRows(adj, adj, include_first_hop=True)
+            degrees_for_tiling = None
+        return run_d2_engine(
+            n=n, provider=provider, deg_ext=deg_ext, tiling=tiling,
+            degrees_for_tiling=degrees_for_tiling, mode=mode,
+            heuristic=heuristic, kind=firstfit, coarsen=coarsen,
+            tail_serial=tail_serial, max_iters=max_iters,
+            algorithm="distance2_sgr", deg_bound=g.max_degree, trace=trace,
+        )
+
+    return traced_run(run, trace)

@@ -1,12 +1,13 @@
 """Structured errors of the port (counterpart of ``repro.errors``).
 
-Only the classes the ported slices raise are here; the rest of the error
-surface (``IngestError``, ``Overloaded``, ``SessionEvicted``) arrives with
-ROADMAP item A10.
+Only the classes the ported slices raise are here; ``Overloaded`` and
+``SessionEvicted`` arrive with the service (ROADMAP A12).  ``IngestError``
+lives here rather than beside ``IngestReport`` as in ``repro``: it only
+reads the report it is given.
 """
 from __future__ import annotations
 
-__all__ = ["ReproError", "CapacityError", "NonConvergenceError"]
+__all__ = ["ReproError", "IngestError", "CapacityError", "NonConvergenceError"]
 
 
 class ReproError(Exception):
@@ -23,6 +24,21 @@ class ReproError(Exception):
         out = {"error": type(self).__name__, "message": str(self)}
         out.update(self._fields())
         return out
+
+
+class IngestError(ReproError, ValueError):
+    """The ingest front door (``repro_torch.ingest.sanitize_csr``) refused a
+    malformed CSR under its strict policy; ``.report`` carries the
+    structured ``IngestReport``.  Still a ``ValueError``, as in ``repro``.
+    """
+
+    def __init__(self, report):
+        self.report = report
+        super().__init__(report.summary())
+
+    def _fields(self) -> dict:
+        return {"issues": dict(self.report.issues),
+                "repairs": [[a, int(c)] for a, c in self.report.repairs]}
 
 
 class CapacityError(ReproError, ValueError):

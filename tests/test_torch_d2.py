@@ -295,8 +295,14 @@ def test_compress_unconverged_raises():
     with pytest.raises(NonConvergenceError, match="did not converge"):
         T.compress_jacobian_pattern(bg, max_iters=1, on_fail="raise",
                                     device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        T.compress_jacobian_pattern(bg, max_iters=1, device="cpu")
+    # on_fail="ladder" (the default) is ported: the starved run is repaired
+    # through the guarantee ladder, as in repro
+    want = R.compress_jacobian_pattern(jacobian_band(40, band=2), max_iters=1)
+    got = T.compress_jacobian_pattern(bg, max_iters=1, device="cpu")
+    assert T.validate_bipartite(bg, got.coloring.colors)
+    assert got.coloring.degradations == want.coloring.degradations
+    assert any(d["stage"] == "ladder" for d in got.coloring.degradations)
+    np.testing.assert_array_equal(want.seed_matrix(), got.seed_matrix())
     with pytest.raises(ValueError, match="unknown on_fail"):
         T.compress_jacobian_pattern(bg, on_fail="retry", device="cpu")
     assert issubclass(NonConvergenceError, (RuntimeError, ValueError))
@@ -436,7 +442,6 @@ def test_distance2_surface():
     g = _tg(_graph("er"))
     for opts, err, match in (
             (dict(engine="sharded"), NotImplementedError, "ROADMAP A11"),
-            (dict(trace=True), NotImplementedError, "ROADMAP A6"),
             (dict(engine="padded"), ValueError, "unknown engine"),
             (dict(backend="cuda"), ValueError, "needs a CUDA device"),
             (dict(mode="eager"), ValueError, "unknown mode")):
@@ -445,3 +450,8 @@ def test_distance2_surface():
     for backend in (None, "auto"):
         assert repro_torch.color(g, "distance2", device="cpu",
                                  backend=backend).converged
+    # trace= is ported (ROADMAP A6): the rows equal repro's
+    traced = repro_torch.color(g, "distance2", device="cpu", trace=True)
+    want = R.color_distance2(_graph("er"), trace=True)
+    np.testing.assert_array_equal(want.trace.steps, traced.trace.steps)
+    assert traced.trace.check(traced) == []

@@ -20,6 +20,7 @@ import repro_torch
 import repro_torch.core.coloring as core_coloring
 from repro_torch.core.coloring import order_tail, run_ragged_engine
 from repro_torch.core.csr import CSRGraph, DeviceCSR, csr_from_edges
+from repro_torch.core.validate import is_valid_coloring
 from repro_torch.d2 import (
     compress_jacobian_pattern,
     d2_sgr_step,
@@ -244,6 +245,9 @@ def test_color_without_device_raises_without_a_card():
         repro_torch.color(grid2d(4, 4), device="cuda")
 
 
+# options that raised NotImplementedError naming their ROADMAP item; A5
+# (the baselines), A6 (trace=) and A10 (ingest, the ladder) are ported, so
+# only A9 and A11 still raise
 NOT_PORTED = [
     ("engine-sharded", (), dict(engine="sharded"), "A11"),
     ("trace", (), dict(trace=True), "A6"),
@@ -257,14 +261,35 @@ NOT_PORTED = [
     ("distance2-sharded", ("distance2",), dict(engine="sharded"), "A11"),
     ("algorithm-dynamic", ("dynamic",), {}, "A9"),
 ]
+PORTED_ITEMS = ("A5", "A6", "A10")
 
 
 @pytest.mark.parametrize("args,opts,item", [c[1:] for c in NOT_PORTED],
                          ids=[c[0] for c in NOT_PORTED])
 def test_options_outside_the_slice_raise_naming_their_item(args, opts, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        repro_torch.color(erdos_renyi(300, 5.0, seed=1), *args, device="cpu",
-                          **opts)
+    """A9 and A11 still raise naming their item.  The options of the items
+    ported since (A5, A6, A10) run: a valid, converged coloring whose
+    fields equal the same call without the option where the option adds
+    only telemetry or checks (their parity with repro is held in
+    ``tests/test_torch_baselines.py``, ``test_torch_obs.py`` and
+    ``test_torch_guarantee.py``)."""
+    g = erdos_renyi(300, 5.0, seed=1)
+    if item not in PORTED_ITEMS:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            repro_torch.color(g, *args, device="cpu", **opts)
+        return
+    r = repro_torch.color(g, *args, device="cpu", **opts)
+    valid = validate_d2 if args == ("distance2",) else is_valid_coloring
+    assert r.converged and valid(g, r.colors)
+    assert r.degradations == ()
+    if args in ((), ("distance2",)):
+        plain = repro_torch.color(g, *args, device="cpu")
+        np.testing.assert_array_equal(plain.colors, r.colors)
+        assert all(getattr(plain, f) == getattr(r, f) for f in FIELDS)
+    if opts.get("trace"):
+        assert r.trace.check(r) == [] and r.trace.iterations == r.iterations
+    else:
+        assert r.trace is None
 
 
 def test_unchunked_coarsen_lanes_is_in_the_slice():
@@ -324,10 +349,12 @@ def test_auto_backends_run_on_cpu(backend):
 
 
 def test_public_surface():
-    assert repro_torch.algorithms() == ("bipartite", "data_driven", "distance2",
-                                        "fused")
+    assert repro_torch.algorithms() == (
+        "bipartite", "data_driven", "distance2", "fused", "jp", "multihash",
+        "serial", "threestep", "topology")
     assert repro_torch.get_algorithm("data_driven").__name__ == "color_data_driven"
     assert issubclass(repro_torch.CapacityError, repro_torch.ReproError)
+    assert issubclass(repro_torch.IngestError, (repro_torch.ReproError, ValueError))
     o = repro_torch.ColorOptions.normalize(heuristic="id", tiling=(8, 16))
     assert o.engine_kwargs() == {"heuristic": "id", "tiling": (8, 16)}
     assert hash(o) == hash(repro_torch.ColorOptions(
@@ -808,3 +835,112 @@ def test_cuda_compress_jacobian_pattern_matches_cpu(cuda_device, zero_counts):
     want = compress_jacobian_pattern(bg, device="cpu")
     assert got.num_groups == want.num_groups == 7
     np.testing.assert_array_equal(want.seed_matrix(), got.seed_matrix())
+
+
+# --------------------------------------------------------------------------
+# the paper's baselines, traced runs and the ladder (ROADMAP A5, A6, A10)
+# --------------------------------------------------------------------------
+
+BASELINES = [
+    ("topology", dict(heuristic="id")),
+    ("topology", dict(heuristic="degree", firstfit="scan")),
+    ("jp", {}),
+    ("multihash", dict(nhash=1)),
+    ("multihash", dict(nhash=2)),
+    ("threestep", {}),
+    ("threestep", dict(device_rounds=0)),
+    ("serial", {}),
+]
+BASELINE_IDS = [f"{a}-{i}" for i, (a, _) in enumerate(BASELINES)]
+
+
+def test_baselines_on_the_cpu_launch_nothing(zero_counts):
+    g = build_graph("rmat-g", 0.05)
+    for algorithm, opts in BASELINES:
+        r = repro_torch.color(g, algorithm, device="cpu", **opts)
+        assert r.converged and is_valid_coloring(g, r.colors)
+    assert [k.launches for k in KERNELS] == [0] * len(KERNELS)
+
+
+def test_baselines_without_device_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present, so device=None runs there")
+    for algorithm, _ in BASELINES:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            repro_torch.color(grid2d(4, 4), algorithm)
+
+
+def _refuse_gathers(monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a dense-table step gathered a tile on the card")
+    monkeypatch.setattr(core_coloring, "gather_rows", refuse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm,opts", BASELINES, ids=BASELINE_IDS)
+def test_cuda_baselines_match_cpu(cuda_device, zero_counts, monkeypatch,
+                                  algorithm, opts):
+    """Topology and three-step run K4 and K5 over the dense table, one
+    launch each a step and no tile gathered; JP, multi-hash and serial
+    launch no kernel.  Every field equals the CPU port's."""
+    g = build_graph("rmat-g", 0.05)
+    with monkeypatch.context() as m:
+        _refuse_gathers(m)
+        a = repro_torch.color(g, algorithm, device=cuda_device, **opts)
+    steps = a.iterations if algorithm in ("topology", "threestep") else 0
+    assert firstfit_rows.launches == conflict_rows.launches == steps
+    assert sum(k.launches for k in KERNELS) == 2 * steps
+    b = repro_torch.color(g, algorithm, device="cpu", **opts)
+    np.testing.assert_array_equal(a.colors, b.colors)
+    assert all(getattr(a, f) == getattr(b, f) for f in FIELDS)
+    assert a.algorithm == b.algorithm
+    assert getattr(a, "serial_tail", None) == getattr(b, "serial_tail", None)
+    assert is_valid_coloring(g, a.colors)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm,opts", [
+    ("data_driven", {}), ("data_driven", dict(engine="classic")),
+    ("data_driven", dict(engine="padded", mode="fused")),
+    ("distance2", dict(strategy="onthefly")), ("data_driven", dict(trace=3)),
+], ids=["ragged", "classic", "padded-fused", "distance2", "ring-3"])
+def test_cuda_traced_runs_match_cpu(cuda_device, zero_counts, algorithm, opts):
+    g = build_graph("rmat-g", 0.05)
+    opts = {"trace": True, **opts}
+    a = repro_torch.color(g, algorithm, device=cuda_device, **opts)
+    b = repro_torch.color(g, algorithm, device="cpu", **opts)
+    np.testing.assert_array_equal(a.colors, b.colors)
+    assert all(getattr(a, f) == getattr(b, f) for f in FIELDS)
+    assert torch.equal(torch.from_numpy(a.trace.steps),
+                       torch.from_numpy(b.trace.steps))
+    assert a.trace.iterations == b.trace.iterations and a.trace.check(a) == []
+    assert [e.name for e in a.trace.spans] == [e.name for e in b.trace.spans]
+    untraced = repro_torch.color(g, algorithm, device=cuda_device,
+                                 **{k: v for k, v in opts.items() if k != "trace"})
+    np.testing.assert_array_equal(untraced.colors, a.colors)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm,opts", [
+    ("data_driven", dict(max_iters=1, tail_serial=False)),
+    ("data_driven", dict(engine="classic", max_iters=1, tail_serial=False)),
+    ("topology", dict(max_iters=1)),
+    ("distance2", dict(max_iters=1, tail_serial=False)),
+], ids=["ragged", "classic", "topology", "distance2"])
+def test_cuda_ladder_matches_cpu(cuda_device, zero_counts, algorithm, opts):
+    g = erdos_renyi(3000, 8.0, seed=11)
+    a = repro_torch.color(g, algorithm, device=cuda_device, ensure_valid=True,
+                          **opts)
+    b = repro_torch.color(g, algorithm, device="cpu", ensure_valid=True, **opts)
+    assert a.degradations == b.degradations != ()
+    np.testing.assert_array_equal(a.colors, b.colors)
+    assert a.converged and a.iterations == b.iterations
+
+
+@pytest.mark.cuda
+def test_cuda_all_to_all_rounds_match_cpu(cuda_device, zero_counts):
+    from repro_torch.core.scheduling import all_to_all_rounds
+
+    assert all_to_all_rounds(8, device=cuda_device) == all_to_all_rounds(
+        8, device="cpu")
+    assert superstep_csr.launches > 0
