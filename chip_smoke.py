@@ -54,7 +54,12 @@ Phases, in order; any failure ends the run with a non-zero exit code:
              ``threestep`` (``serial_tail`` too); traced ragged, classic
              and distance-2 runs (``trace.steps`` too); and
              ``ensure_valid=True`` on unconverged runs (``degradations``
-             too): card == CPU.
+             too): card == CPU.  Then ``color_batch`` on
+             ``serving_mix(8, 0.5)``, fused and distance-2, both
+             heuristics, traced (every result field and trace row), and a
+             durable session on rmat-g at 0.25 through three churn rounds
+             (results, frontier, ``metrics()`` and the journal's records):
+             card == CPU.
 9. full    — the main paths at full size, each run once with the launch
              counts set to 0 just before and read just after, then timed:
              the default ragged path, the classic engine and the padded
@@ -104,6 +109,19 @@ Phases, in order; any failure ends the run with a non-zero exit code:
              rmat-er (same colours, ``check()`` passes, both walls); and
              ``ensure_valid=True, max_iters=1`` on rmat-er (the rungs
              taken).
+12. serving — the batched engine and sessions at full size: a batch of
+             four rmat-er graphs at 2^20 (seeds 2, 12, 22, 32, one width
+             bucket), ``serving_mix(16, 40)`` (five buckets) and batched
+             distance-2 on ``serving_mix(8, 10)`` (host G^2 built apart),
+             each counted (one K3 launch a global step, at most one K2
+             launch a bucket, no tile gathered, valid) and timed packed
+             against the loop of single fused calls; sessions on rmat-g
+             and thermal2 under four 1% churn rounds (frontier, host
+             snapshot rebuild, recolor against the cold fused call, engine
+             keys, validity, device memory flat); a ``SessionBatch`` over
+             the four rmat-er graphs in which only the two dirty sessions
+             launch.  The host graphs of the phase are built side by side
+             in a process pool.
 
 The line before the last is the kernels' JSON record, and the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
@@ -114,10 +132,13 @@ import contextlib
 import ctypes
 import dataclasses
 import json
+import multiprocessing
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 from unittest import mock
 
@@ -127,7 +148,13 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import repro_torch.core.coloring as core_coloring  # noqa: E402
-from repro_torch import color  # noqa: E402
+from repro_torch import color, color_batch, open_session  # noqa: E402
+from repro_torch.core.batch import (  # noqa: E402
+    GraphBatch,
+    _width_key,
+    color_batch_fused,
+    open_session_batch,
+)
 from repro_torch.core.coloring import (  # noqa: E402
     ColoringResult,
     DenseRows,
@@ -153,6 +180,8 @@ from repro_torch.d2.coloring import (  # noqa: E402
     TwoHopRows,
     resolve_d2_strategy,
 )
+from repro_torch.dynamic import churn_delta  # noqa: E402
+from repro_torch.dynamic.journal import SessionJournal  # noqa: E402
 from repro_torch.graphs import (  # noqa: E402
     RMAT_ER,
     RMAT_G,
@@ -162,6 +191,7 @@ from repro_torch.graphs import (  # noqa: E402
     jacobian_band,
     jacobian_tall_skinny,
     rmat,
+    serving_mix,
 )
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.conflict.kernel import (  # noqa: E402
@@ -1087,6 +1117,88 @@ def check_baselines_slice(dev_cuda):
               "card == cpu", flush=True)
 
 
+def same_batch(a_list, b_list) -> list:
+    """``same_result`` over two result lists, with the algorithm and the
+    trace rows ([] if none differ)."""
+    diff = []
+    for i, (a, b) in enumerate(zip(a_list, b_list)):
+        d = same_result(a, b)
+        if a.algorithm != b.algorithm or a.degradations != b.degradations:
+            d.append(("algorithm/degradations", a.algorithm, b.algorithm))
+        if (a.trace is None) != (b.trace is None) or (
+                a.trace is not None and not np.array_equal(a.trace.steps, b.trace.steps)):
+            d.append(("trace", "rows differ"))
+        if d:
+            diff.append((i, d))
+    if len(a_list) != len(b_list):
+        diff.append(("length", len(a_list), len(b_list)))
+    return diff
+
+
+def check_batch_slice(dev_cuda):
+    """``color_batch`` (fused and distance-2, both heuristics, traced) on
+    ``serving_mix(8, 0.5)``: card == CPU, valid, K3 launched."""
+    graphs = serving_mix(8, 0.5)
+    for algorithm in ("fused", "distance2"):
+        valid = validate_d2 if algorithm == "distance2" else is_valid_coloring
+        for heuristic in HEURISTICS:
+            reset_counts()
+            a = color_batch(graphs, algorithm, heuristic=heuristic, trace=True,
+                            device=dev_cuda)
+            k3 = superstep_tile.launches
+            b = color_batch(graphs, algorithm, heuristic=heuristic, trace=True,
+                            device="cpu")
+            diff = same_batch(a, b)
+            if diff or k3 == 0 or not all(valid(g, r.colors)
+                                          for g, r in zip(graphs, a)):
+                fail(f"batch slice: {algorithm} {heuristic}: card != cpu, invalid "
+                     f"or K3 not launched ({k3}): {diff}")
+            print(f"batch slice {algorithm} {heuristic} on serving_mix(8, 0.5) "
+                  f"(n {[g.n for g in graphs]}): iters "
+                  f"{[r.iterations for r in a]}, colors {[r.num_colors for r in a]}, "
+                  f"K3 {k3} K2 {serial_tail_csr.launches}: card == cpu", flush=True)
+
+
+def check_session_slice(dev_cuda):
+    """A durable session on SUITE rmat-g at 0.25, three churn rounds on the
+    card and on the CPU: results, frontier, metrics() and the journal's
+    records equal."""
+    g = build_graph("rmat-g", 0.25)
+    with tempfile.TemporaryDirectory() as tmp:
+        a = open_session(g, device=dev_cuda, trace=True,
+                         durable_dir=f"{tmp}/card", snapshot_every=4)
+        b = open_session(g, device="cpu", trace=True,
+                         durable_dir=f"{tmp}/cpu", snapshot_every=4)
+        if same_batch([a.result], [b.result]):
+            fail("session slice: cold colouring card != cpu")
+        rngs = (np.random.default_rng(14), np.random.default_rng(14))
+        for r in range(3):
+            for s, rng in zip((a, b), rngs):
+                rem, add = churn_delta(s.graph, 0.01, rng)
+                s.apply_delta(remove_edges=rem, add_edges=add)
+            frontier, frontier_cpu = a.frontier(), b.frontier()
+            reset_counts()
+            with no_superstep_gathers():
+                ra = a.recolor()
+            counts = {k.__name__: k.launches for k in KERNELS if k.launches}
+            rb = b.recolor()
+            diff = same_batch([ra], [rb])
+            if (diff or not np.array_equal(frontier, frontier_cpu)
+                    or a.metrics() != b.metrics() or not a.validate()
+                    or superstep_csr.launches + superstep_tile.launches == 0):
+                fail(f"session slice round {r}: card != cpu or invalid: {diff} "
+                     f"{a.metrics()} {b.metrics()} {counts}")
+            print(f"session slice rmat-g at 0.25 round {r}: frontier {frontier.size}, "
+                  f"iters {ra.iterations}, work {ra.work_items}, launches {counts}: "
+                  "card == cpu", flush=True)
+        ja = list(SessionJournal(f"{tmp}/card").records())
+        jb = list(SessionJournal(f"{tmp}/cpu").records())
+        if ja != jb or a.metrics() != b.metrics():
+            fail("session slice: journal records or metrics() card != cpu")
+        print(f"session slice: {len(ja)} journal records and metrics() "
+              f"{a.metrics()} card == cpu", flush=True)
+
+
 # --------------------------------------------------------------------------
 # phase 9-10: the main paths at full size
 # --------------------------------------------------------------------------
@@ -1518,13 +1630,14 @@ def device_us(event) -> float:
 
 
 def profile_call(call):
-    """Device time by kernel for one call, from torch.profiler."""
+    """Device time by kernel for one call, from torch.profiler; returns
+    what the call returned."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        call()
+        out = call()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
     # device rows only: an aten:: op's row repeats its kernels' device time
@@ -1534,11 +1647,12 @@ def profile_call(call):
     busy = sum(r[1] for r in rows)
     if not rows:
         print("  profiler: no device time recorded (not measured)")
-        return
+        return out
     print(f"  profiler: wall {wall:.3f} ms, device busy {busy:.3f} ms "
           f"({100 * busy / wall:.1f}%), top kernels:")
     for key, ms, count in rows[:8]:
         print(f"    {ms:10.3f} ms  x{count:<5d} {key[:90]}")
+    return out
 
 
 def no_tile_gathers():
@@ -2108,9 +2222,340 @@ def check_comparison(graphs: dict, ragged: dict, dev_cuda) -> dict:
     return {"launches": totals, "table": table, "serial_ms": serial_ms}
 
 
+# --------------------------------------------------------------------------
+# phase 12: the batched engine and streaming sessions at full size
+# --------------------------------------------------------------------------
+
+BATCH_SEEDS = (2, 12, 22, 32)  # rmat-er at 2^20: phase 9's graph is seed 2
+STREAM_ROUNDS = 4
+CHURN = 0.01  # benchmarks/dynamic.py's churn fraction and seed
+CHURN_SEED = 14
+
+
+@contextlib.contextmanager
+def counted_steps():
+    """Count ``ragged_superstep`` calls (a batch's global steps, a
+    session's class sub-steps) in a list the context yields."""
+    real = core_coloring.ragged_superstep
+    calls = []
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    with mock.patch.object(core_coloring, "ragged_superstep", counted):
+        yield calls
+
+
+def median_ms(call, reps: int = 3) -> tuple[float, list]:
+    """The median wall of ``reps`` runs of ``call()`` (after the caller's
+    warm-up), each ending in ``torch.cuda.synchronize()``."""
+    walls = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(walls), [round(w, 3) for w in walls]
+
+
+def counted_batch(label: str, call, graphs, valid, buckets: int) -> dict:
+    """The counted run of a batched call: no tile gathered, K3 launches
+    equal to the global steps, at most one K2 launch a width bucket, every
+    colouring valid.  Returns the launches and the own peak (MiB)."""
+    reset_counts()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with no_superstep_gathers(), counted_steps() as steps:
+        results = call()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**20
+    counts = {k.__name__: k.launches for k in KERNELS}
+    if counts["superstep_tile"] != len(steps) or not steps:
+        fail(f"{label}: {counts['superstep_tile']} K3 launches for {len(steps)} "
+             "global steps")
+    if counts["serial_tail_csr"] > buckets:
+        fail(f"{label}: {counts['serial_tail_csr']} K2 launches for {buckets} buckets")
+    for g, r in zip(graphs, results):
+        if not (r.converged and valid(g, r.colors)):
+            fail(f"{label}: a colouring is not valid")
+    print(f"{label}: counted run: {len(steps)} global steps, launches "
+          f"{ {k: c for k, c in counts.items() if c} }, own peak {peak:.1f} MiB; "
+          f"iters {[r.iterations for r in results]}, colors "
+          f"{[r.num_colors for r in results]}", flush=True)
+    return {"counts": counts, "results": results, "peak_mib": peak,
+            "steps": len(steps)}
+
+
+def bucketed(graphs, distance2: bool = False) -> list:
+    """``color_batch_fused``'s width buckets: lists of graph indices."""
+    by_key: dict = {}
+    for i, g in enumerate(graphs):
+        by_key.setdefault(_width_key(g, distance2), []).append(i)
+    return list(by_key.values())
+
+
+def time_batch(label: str, graphs, dev_cuda, distance2: bool = False) -> dict:
+    """Pack each width bucket once (timed apart, host and upload), then the
+    median of 3 batched calls over the packed buckets after a warm-up,
+    against the loop of single ``color(g, mode="fused")`` calls.  Distance-2
+    takes one run after the counted one (its calls are device-bound and
+    seconds long) and no loop (a single distance-2 call squares its graph
+    on the host)."""
+    t = time.perf_counter()
+    batches = [GraphBatch.from_graphs([graphs[i] for i in idx], distance2=distance2,
+                                      device=dev_cuda) for idx in bucketed(graphs, distance2)]
+    torch.cuda.synchronize()
+    pack_ms = (time.perf_counter() - t) * 1e3
+    for b in batches:
+        print(f"  bucket B={b.B} n_max={b.n_max} W={b.width} table "
+              f"{tuple(b.table.shape)} CSR nnz {int(b.csr.col_padded.numel()) - b.width}",
+              flush=True)
+
+    def batch_call():
+        return [color_batch_fused(b, distance2=distance2) for b in batches]
+
+    if not distance2:
+        batch_call()
+    ms, walls = median_ms(batch_call, reps=1 if distance2 else 3)
+    B = len(graphs)
+    line = (f"{label}: pack {pack_ms:.3f} ms (host + upload, apart); batched "
+            f"median {ms:.3f} ms of {walls} ({ms / B:.3f} ms a graph)")
+    loop_ms = None
+    if not distance2:
+        def loop_call():
+            return [color(g, device=dev_cuda, mode="fused") for g in graphs]
+
+        loop_call()
+        loop_ms, loop_walls = median_ms(loop_call)
+        line += (f"; loop of {B} single color(g, mode='fused') median "
+                 f"{loop_ms:.3f} ms of {loop_walls} ({loop_ms / B:.3f} ms a "
+                 f"graph); batch {loop_ms / ms:.2f}x")
+    print(f"{line} [{card_line()}]", flush=True)
+    profile_call(batch_call)
+    return {"pack_ms": pack_ms, "ms": ms, "loop_ms": loop_ms}
+
+
+def rmat_er(seed: int):
+    return rmat(1 << 20, 10.0, RMAT_ER, seed=seed)
+
+
+def batch_graphs(first, pending: list) -> list:
+    """Four rmat-er graphs at the paper's size: phase 9's (seed 2) and seeds
+    12, 22, 32 (``pending``: their builds, started in a process pool); a
+    seed whose pow2 width bucket differs from the first graph's is replaced
+    by the next seed by 10 (the recipe is unchanged)."""
+    key = _width_key(first, False)
+    graphs = [first]
+    for seed, job in zip(BATCH_SEEDS[1:], pending):
+        g = job.result()
+        for _ in range(5):
+            if _width_key(g, False) == key:
+                break
+            print(f"batch: rmat-er seed {seed} has dmax {g.max_degree}, outside "
+                  f"the bucket W <= {key}; taking seed {seed + 10}", flush=True)
+            seed += 10
+            g = rmat_er(seed)
+        print(f"batch graph rmat-er seed {seed}: n={g.n} nnz={g.m} "
+              f"dmax={g.max_degree}", flush=True)
+        graphs.append(g)
+    return graphs
+
+
+def timed_square(g):
+    """``(G², seconds)``: the host build of ``g``'s square, timed where it
+    runs (a pool process)."""
+    t = time.perf_counter()
+    sq = g.square()
+    return sq, time.perf_counter() - t
+
+
+def with_square(g, sq):
+    """``g``, its ``square()`` answering ``sq`` (its G², built in the process
+    pool), so the batch packs it without squaring it again."""
+    object.__setattr__(g, "square", lambda: sq)
+    return g
+
+
+def check_stream(graphs: dict, dev_cuda) -> dict:
+    """Sessions on rmat-g and thermal2, 4 churn rounds each: per round the
+    frontier, the host snapshot rebuild, the incremental recolor and the
+    cold fused call on the mutated graph, work items, engine keys, validity
+    and the device memory, which must stay flat round over round."""
+    totals = {k.__name__: 0 for k in KERNELS}
+    out = {}
+    for name in ("rmat-g", "thermal2"):
+        g = graphs[name]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        s = open_session(g, device=dev_cuda)
+        torch.cuda.synchronize()
+        print(f"stream {name}: open_session {(time.perf_counter() - t) * 1e3:.3f} ms "
+              f"(cold fused colouring, {s.num_colors} colors) [{card_line()}]",
+              flush=True)
+        rng = np.random.default_rng(CHURN_SEED)
+        mems, rounds = [], []
+        for r in range(STREAM_ROUNDS):
+            rem, add = churn_delta(s.graph, CHURN, rng)
+            s.apply_delta(remove_edges=rem, add_edges=add)
+            frontier = int(s.frontier().size)
+            t = time.perf_counter()
+            snap = s.graph  # the host O(m) overlay merge, timed apart
+            rebuild_ms = (time.perf_counter() - t) * 1e3
+            reset_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with no_superstep_gathers():
+                res = s.recolor()
+            torch.cuda.synchronize()
+            inc_ms = (time.perf_counter() - t) * 1e3
+            counts = {k.__name__: k.launches for k in KERNELS if k.launches}
+            for k, c in counts.items():
+                totals[k] += c
+            if not counts.get("superstep_csr", 0) + counts.get("superstep_tile", 0):
+                fail(f"stream {name} round {r}: neither K1 nor K3 was launched")
+            if not (res.converged and s.validate()):
+                fail(f"stream {name} round {r}: the session colouring is not valid")
+            cold_work = color(snap, device=dev_cuda, mode="fused").work_items  # warm-up
+            cold_ms, _ = median_ms(lambda: color(snap, device=dev_cuda, mode="fused"))
+            m = s.metrics()
+            del snap
+            torch.cuda.synchronize()
+            mems.append(torch.cuda.memory_allocated() - base)
+            rounds.append({"frontier": frontier, "rebuild_ms": rebuild_ms,
+                           "recolor_ms": inc_ms, "cold_ms": cold_ms,
+                           "work": res.work_items, "iters": res.iterations})
+            print(f"  round {r}: frontier {frontier}, host snapshot rebuild "
+                  f"{rebuild_ms:.3f} ms, recolor {inc_ms:.3f} ms ({res.iterations} "
+                  f"iters, work {res.work_items}, launches {counts}), cold fused "
+                  f"{cold_ms:.3f} ms (work {cold_work}), "
+                  f"engine keys hit/miss {m['engine_cache_hits']}/"
+                  f"{m['engine_cache_misses']}, valid {s.validate()}, session "
+                  f"memory {mems[-1] / 2**20:.1f} MiB [{card_line()}]", flush=True)
+        rem, add = churn_delta(s.graph, CHURN, rng)
+        s.apply_delta(remove_edges=rem, add_edges=add)
+        s.graph  # the snapshot, outside the profiled recolor
+        print(f"  round {STREAM_ROUNDS}, profiled: frontier {s.frontier().size}",
+              flush=True)
+        profile_call(s.recolor)
+        # one graph's tables: the session's padded CSR (its high-water column
+        # capacity), the cold calls' CSR and three (n + 1) int32 arrays
+        table_bytes = (s._ecap_hw + s.graph.m + s.graph.max_degree
+                       + 3 * (s.n + 1)) * 4
+        if max(mems[1:]) - mems[0] > table_bytes:
+            fail(f"stream {name}: session memory grew {mems} past one graph's "
+                 f"tables ({table_bytes} B)")
+        print(f"stream {name}: memory {[round(x / 2**20, 1) for x in mems]} MiB "
+              f"over {STREAM_ROUNDS} rounds: flat", flush=True)
+        out[name] = rounds
+        del s
+        torch.cuda.empty_cache()
+    return {"launches": totals, "rounds": out}
+
+
+def check_session_batch(graphs: list, dev_cuda) -> dict:
+    """``open_session_batch`` over the batch graphs; two of them churned and
+    one sweep recolors them: only the dirty sessions launch anything."""
+    t = time.perf_counter()
+    sb = open_session_batch(graphs, device=dev_cuda)
+    torch.cuda.synchronize()
+    open_ms = (time.perf_counter() - t) * 1e3
+    launched = {}
+    for b, s in enumerate(sb.sessions):
+        def wrapped(*, full=False, b=b, real=s.recolor):
+            before = sum(k.launches for k in KERNELS)
+            r = real(full=full)
+            launched[b] = sum(k.launches for k in KERNELS) - before
+            return r
+        s.recolor = wrapped
+    rng = np.random.default_rng(CHURN_SEED)
+    dirty = (1, 3)
+    for b in dirty:
+        rem, add = churn_delta(sb.sessions[b].graph, CHURN, rng)
+        sb.apply_delta(b, remove_edges=rem, add_edges=add)
+    for b in dirty:  # the snapshots, outside the sweep (timed in phase 12's streams)
+        sb.sessions[b].graph
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with no_superstep_gathers():
+        results = profile_call(sb.recolor)
+    sweep_ms = (time.perf_counter() - t) * 1e3
+    counts = {k.__name__: k.launches for k in KERNELS}
+    for b in range(sb.B):
+        if (launched[b] > 0) != (b in dirty) or (results[b].work_items > 0) != (b in dirty):
+            fail(f"session batch: graph {b} launched {launched[b]} kernels, work "
+                 f"{results[b].work_items}; dirty {dirty}")
+    if not sb.validate():
+        fail("session batch: a colouring is not valid")
+    print(f"session batch over {sb.B} rmat-er graphs at 2^20: open {open_ms:.3f} ms; "
+          f"dirty {list(dirty)}, sweep {sweep_ms:.3f} ms (profiled), launches per session "
+          f"{launched}, work {[r.work_items for r in results]}, metrics "
+          f"{sb.metrics()['engine_cache_misses']} misses: only the dirty sessions "
+          f"launched [{card_line()}]", flush=True)
+    return {"launches": counts, "sweep_ms": sweep_ms}
+
+
+def check_serving(graphs: dict, dev_cuda) -> dict:
+    """Phase 12: the batch of four rmat-er graphs, the serving mix, the
+    batched distance-2 path, sessions under churn and a session batch."""
+    totals = {k.__name__: 0 for k in KERNELS}
+
+    def add(counts):
+        for k, c in counts.items():
+            totals[k] += c
+
+    d2mix = serving_mix(8, 10)
+    t = time.perf_counter()
+    # the host builds run side by side in spawned processes (numpy only)
+    with ProcessPoolExecutor(max_workers=6,
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        pending = [pool.submit(rmat_er, seed) for seed in BATCH_SEEDS[1:]]
+        squares = [pool.submit(timed_square, g) for g in d2mix]
+        mix = serving_mix(16, 40)
+        four = batch_graphs(graphs["rmat-er"], pending)
+        squares = [job.result() for job in squares]
+        d2mix = [with_square(g, sq) for g, (sq, _) in zip(d2mix, squares)]
+    print(f"phase 12 host graphs (three rmat-er, serving_mix(16, 40), the G^2 of "
+          f"serving_mix(8, 10)) built in {time.perf_counter() - t:.1f} s, side by "
+          "side in a process pool", flush=True)
+    print(f"batch four rmat-er: dmax {[g.max_degree for g in four]}, buckets "
+          f"{bucketed(four)}", flush=True)
+    out = counted_batch("batch four rmat-er", lambda: color_batch(four, device=dev_cuda),
+                        four, is_valid_coloring, len(bucketed(four)))
+    add(out["counts"])
+    time_batch("batch four rmat-er", four, dev_cuda)
+    buckets = bucketed(mix)
+    print(f"serving mix (16, 40): n {[g.n for g in mix]}, dmax "
+          f"{[g.max_degree for g in mix]}, buckets (B, W key) "
+          f"{[(len(i), _width_key(mix[i[0]], False)) for i in buckets]}", flush=True)
+    out = counted_batch("serving mix", lambda: color_batch(mix, device=dev_cuda), mix,
+                        is_valid_coloring, len(buckets))
+    add(out["counts"])
+    time_batch("serving mix", mix, dev_cuda)
+    d2b = bucketed(d2mix, True)
+    secs = [round(sec, 3) for _, sec in squares]
+    print(f"batched distance-2 on serving_mix(8, 10): G^2 m "
+          f"{[sq.m for sq, _ in squares]}, dmax {[sq.max_degree for sq, _ in squares]}; "
+          f"host G^2 build {sum(secs):.3f} s in all ({secs} s each, in the pool "
+          f"above); buckets {d2b}", flush=True)
+    out = counted_batch("batched distance-2",
+                        lambda: color_batch(d2mix, "distance2", device=dev_cuda),
+                        d2mix, validate_d2, len(d2b))
+    add(out["counts"])
+    time_batch("batched distance-2", d2mix, dev_cuda, distance2=True)
+    stream = check_stream(graphs, dev_cuda)
+    add(stream["launches"])
+    sbatch = check_session_batch(four, dev_cuda)
+    add(sbatch["launches"])
+    return {"launches": totals}
+
+
 def kernels_record(full: dict) -> list:
     """The kernels' JSON record: launches summed over the main paths'
-    counted runs (distance-1 and distance-2), times and bounds at their
+    counted runs (distance-1, distance-2, the comparison, and phase 12's
+    batched and session paths), times and bounds at their
     shapes on rmat-er (K1: mean per launch over the first superstep's
     classes; K2: the stall tail over all n vertices; K3: mean per launch
     over the padded engine's first-superstep classes, rows read in place;
@@ -2181,6 +2626,8 @@ def main():
     check_slice(dev_cuda)
     check_d2_slice(dev_cuda)
     check_baselines_slice(dev_cuda)
+    check_batch_slice(dev_cuda)
+    check_session_slice(dev_cuda)
     print(f"slice took {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     full = check_full(dev_cuda, lat)
@@ -2196,6 +2643,11 @@ def main():
     for k, c in comparison["launches"].items():
         full["launches"][k] += c
     print(f"comparison took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    serving = check_serving(full["graphs"], dev_cuda)
+    for k, c in serving["launches"].items():
+        full["launches"][k] += c
+    print(f"batch and stream took {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = kernels_record(full)
     print(card)

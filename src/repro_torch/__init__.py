@@ -1,15 +1,17 @@
 """repro_torch: the PyTorch and CUDA port of ``repro`` (csrcolor-jax).
 
-Public entry point: ``repro_torch.color`` (a lazy re-export of
-``repro_torch.api``).  It runs on the card by default (``device="cuda"``),
-through hand-written CUDA kernels for Hopper (``csrc/``); ``device="cpu"``
-runs their plain PyTorch versions.  The package imports no JAX and nothing
+Public entry points: ``repro_torch.color``, ``color_batch`` and
+``open_session`` (lazy re-exports of ``repro_torch.api``), and the fault
+injectors of ``repro_torch.faultlab``.  They run on the card by default
+(``device="cuda"``), through hand-written CUDA kernels for Hopper
+(``csrc/``); ``device="cpu"`` runs their plain PyTorch versions.  The package imports no JAX and nothing
 of ``repro``.  See README.md for what this slice covers.
 """
 
 __version__ = "0.1.0"
 
-_API_NAMES = ("color", "algorithms", "get_algorithm", "register")
+_API_NAMES = ("color", "color_batch", "algorithms", "get_algorithm",
+              "register", "open_session")
 _OPTIONS_NAMES = ("ColorOptions",)
 _ERROR_NAMES = ("ReproError", "IngestError", "CapacityError",
                 "NonConvergenceError")
@@ -29,9 +31,13 @@ def __getattr__(name):
         from repro_torch import errors
 
         return getattr(errors, name)
+    if name == "faultlab":
+        import importlib
+
+        return importlib.import_module("repro_torch.faultlab")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def __dir__():
     return sorted(list(globals()) + list(_API_NAMES) + list(_OPTIONS_NAMES)
-                  + list(_ERROR_NAMES))
+                  + list(_ERROR_NAMES) + ["faultlab"])

@@ -4,9 +4,10 @@
     result = repro_torch.color(g)                  # on the card
     result = repro_torch.color(g, device="cpu")    # plain versions, no card
 
-Algorithms self-register with ``@register(name)``.  The port registers
-every algorithm ``repro`` has but ``dynamic``, which raises
-``NotImplementedError`` naming the ROADMAP item that ports it (A9).
+Algorithms self-register with ``@register(name)``; the port registers
+every algorithm ``repro`` has.  ``color_batch`` colours many graphs (the
+batched engine for ``"fused"`` and ``"distance2"``), ``open_session``
+opens a streaming session (``repro_torch.dynamic``).
 
 Robustness knobs, as in ``repro``: ``validate_input=`` runs the ingest
 front door (``repro_torch.ingest.sanitize_csr``) on a ``CSRGraph`` first,
@@ -16,7 +17,7 @@ what they did on ``result.degradations``.
 """
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, Callable
+from typing import TYPE_CHECKING, Callable, Iterable
 
 from repro_torch.options import ColorOptions
 
@@ -24,12 +25,13 @@ if TYPE_CHECKING:
     from repro_torch.core.coloring import ColoringResult
     from repro_torch.core.csr import CSRGraph
 
-__all__ = ["register", "color", "algorithms", "get_algorithm", "ColorOptions"]
+__all__ = ["register", "color", "color_batch", "algorithms", "get_algorithm",
+           "open_session", "ColorOptions"]
 
 _REGISTRY: dict[str, Callable] = {}
 
 # repro's algorithms that later slices port, with their ROADMAP items
-_NOT_PORTED = {"dynamic": "A9"}
+_NOT_PORTED: dict[str, str] = {}
 
 
 def register(name: str):
@@ -52,6 +54,15 @@ def _ensure_registered() -> None:
     import repro_torch.core.threestep  # noqa: F401
     import repro_torch.core.topo  # noqa: F401
     import repro_torch.d2  # noqa: F401
+    import repro_torch.dynamic  # noqa: F401
+
+
+def open_session(rows, cols=None, *, options: ColorOptions | None = None,
+                 **opts):
+    """Open a streaming ``ColoringSession`` (see ``repro_torch.dynamic``)."""
+    from repro_torch.dynamic import open_session as _open_session
+
+    return _open_session(rows, cols, options=options, **opts)
 
 
 def algorithms() -> tuple[str, ...]:
@@ -158,3 +169,84 @@ def _apply_ladder(graph, algorithm: str, fn: Callable, opts: dict, result):
             out.trace.spans = list(out.trace.spans or []) + rec.events
         return out
     return ensure_valid_result(cg, result, rerun)
+
+
+# the knobs the batched engine understands; everything else goes through
+# the per-graph ``color`` path.  ``repro``'s set plus ``device``.
+_BATCH_SUPPORTED = ("heuristic", "firstfit", "max_iters", "tail_serial",
+                    "engine", "devices", "device", "backend", "trace",
+                    "validate_input", "ensure_valid")
+
+
+def color_batch(
+    graphs: Iterable["CSRGraph"],
+    algorithm: "str | ColorOptions | None" = None, *,
+    options: ColorOptions | None = None, **opts
+) -> "list[ColoringResult]":
+    """Colour many graphs; the serving-path entry point.
+
+    Options come as a ``ColorOptions`` or loose kwargs, as for ``color``;
+    the default algorithm is ``"fused"``.  ``"fused"`` and ``"distance2"``
+    run the batched engine (``repro_torch.core.batch``): the graphs are
+    packed into one table and coloured in one loop of launches.  Any other
+    name loops ``color`` over the graphs.  Knobs the batched engine cannot
+    honor are refused by name.  ``device=`` defaults to ``"cuda"``;
+    ``validate_input=`` and ``ensure_valid=`` act per graph, as in
+    ``color``.
+    """
+    graphs = list(graphs)
+    o = _normalize(algorithm, options, opts)
+    algorithm = o.algorithm or "fused"
+    if algorithm in ("fused", "distance2"):
+        from repro_torch.core.batch import color_batch_fused, color_batch_sharded
+
+        extra = o.extra_dict()
+        devices = extra.pop("devices", None)
+        extra.pop("device", None)
+        if extra:
+            raise ValueError(
+                f"options {sorted(extra)} are not supported by the batched "
+                f"fused engine (supported: {sorted(_BATCH_SUPPORTED)}); "
+                f"use color(g, {algorithm!r}, ...) per graph instead"
+            )
+        pre = [()] * len(graphs)
+        if o.validate_input is not None:
+            from repro_torch.ingest import sanitize_csr
+
+            sanitized = []
+            for i, g in enumerate(graphs):
+                g, report = sanitize_csr(g, policy=o.validate_input)
+                sanitized.append(g)
+                pre[i] = report.degradations()
+            graphs = sanitized
+        kw = o.engine_kwargs()
+        kw.pop("engine", None)
+        kw.pop("devices", None)
+        engine = o.engine or "batch"
+        if engine == "sharded":
+            results = color_batch_sharded(
+                graphs, distance2=(algorithm == "distance2"), devices=devices,
+                **kw)
+        elif engine != "batch":
+            raise ValueError(
+                f"unknown batch engine {engine!r}; options: batch, sharded"
+            )
+        elif devices is not None:
+            raise ValueError(
+                "devices= only applies to engine='sharded'; the default "
+                "batched engine runs on one device (device=)"
+            )
+        else:
+            results = color_batch_fused(
+                graphs, distance2=(algorithm == "distance2"), **kw
+            )
+        for r, p in zip(results, pre):
+            if p:
+                r.degradations = tuple(p) + tuple(r.degradations)
+        if o.ensure_valid:
+            fn = get_algorithm(algorithm)
+            results = [_apply_ladder(g, algorithm, fn, kw, r)
+                       for g, r in zip(graphs, results)]
+        return results
+    per_graph = o.merged(algorithm=algorithm)
+    return [color(g, options=per_graph) for g in graphs]

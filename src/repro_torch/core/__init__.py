@@ -2,8 +2,9 @@
 data-driven engines, the paper's baselines (serial, topology-driven, JP,
 multi-hash, three-step), and the host-side oracle and validators.
 
-Re-exports the ported names of ``repro.core.__all__``; the batched,
-streaming and sharded ones arrive with ROADMAP A7, A9 and A11.  The names
+Re-exports the ported names of ``repro.core.__all__``, the batched engine
+and the streaming sessions among them; the sharded ones (``PartitionedCSR``,
+``balanced_starts``, ``color_sharded``) arrive with ROADMAP A11.  The names
 load on first use (``from repro_torch.core import color_jp``), so importing
 one submodule does not import them all.
 """
@@ -17,6 +18,13 @@ _EXPORTS = {
     "csr_from_edges": "csr",
     "next_pow2": "csr",
     "ColoringResult": "coloring",
+    "GraphBatch": "batch",
+    "SessionBatch": "batch",
+    "batched_sgr_step": "batch",
+    "batched_ragged_step": "batch",
+    "color_batch_fused": "batch",
+    "color_batch_sharded": "batch",
+    "open_session_batch": "batch",
     "color_data_driven": "coloring",
     "color_fused": "coloring",
     "color_topology": "topo",

@@ -94,6 +94,7 @@ __all__ = [
     "color_data_driven",
     "color_fused",
     "compact",
+    "compact_rows",
     "cr_flags",
     "ff_apply",
     "fused_result",
@@ -198,6 +199,17 @@ def compact(ids: torch.Tensor, flags: torch.Tensor, sentinel: int):
     return out[:cap], flags.sum(dtype=torch.int32)
 
 
+def compact_rows(ids: torch.Tensor, flags: torch.Tensor, sentinel: int):
+    """``compact`` on each row of ``(B, L)`` worklists at once (``repro``'s
+    vmapped ``compact``): returns ``(out, counts)``, ``(B, L)`` and
+    ``(B,)`` int32."""
+    B, L = ids.shape
+    pos = torch.cumsum(flags.to(torch.int32), 1, dtype=torch.int32) - 1
+    out = torch.full((B, L + 1), sentinel, dtype=ids.dtype, device=ids.device)
+    out.scatter_(1, torch.where(flags, pos, L).long(), ids)
+    return out[:, :L], flags.sum(1, dtype=torch.int32)
+
+
 def _chunk_bounds(cap: int, nchunks: int):
     nchunks = max(1, min(nchunks, cap))
     size = math.ceil(cap / nchunks)
@@ -251,7 +263,8 @@ def sgr_step(adj, deg_ext, colors_ext, wl, *, heuristic: str = "degree",
 def ragged_superstep(provider, deg_ext, colors_ext, wl, *,
                      heuristic: str = "degree", kind: str = "bitset",
                      coarsen: int = 1, colors_read=None,
-                     pack_degrees: bool = False, width: int | None = None):
+                     pack_degrees: bool = False, width: int | None = None,
+                     rows_per_group: int = 0):
     """One rotated super-step: ConflictResolve + FirstFit + compaction.
 
     ``provider`` serves each worklist id's sentinel-padded row of width
@@ -268,6 +281,10 @@ def ragged_superstep(provider, deg_ext, colors_ext, wl, *,
     tile is gathered.  On the CPU it gathers ``provider.rows(ids, width)``
     and runs ``repro``'s formulation with FirstFit ``kind``.  Updates
     ``colors_ext`` in place, after each launch, from its ``(w,)`` outputs.
+
+    ``rows_per_group=L`` compacts each consecutive group of ``L`` worklist
+    entries on its own (the batched engine's graphs, ``compact_rows``): the
+    new worklist is then ``(B, L)`` and the count ``(B,)``.
     """
     n = colors_ext.shape[0] - 1
     read = colors_ext if colors_read is None else colors_read
@@ -305,6 +322,9 @@ def ragged_superstep(provider, deg_ext, colors_ext, wl, *,
         colors_ext[ids.long()] = torch.where(valid, new_c, 0).to(torch.int32)
         read = colors_ext  # later chunks observe earlier chunks' writes
     need = torch.cat(need_parts) if len(need_parts) > 1 else need_parts[0]
+    if rows_per_group:
+        return (colors_ext,) + compact_rows(wl.view(-1, rows_per_group),
+                                            need.view(-1, rows_per_group), n)
     new_wl, new_count = compact(wl, need, sentinel=n)
     return colors_ext, new_wl, new_count
 
@@ -363,6 +383,14 @@ def _stalled(iters: int, total: int, prev: int) -> bool:
     ``iters >= 3`` skips the bootstrap step and the first conflict wave.
     """
     return iters >= 3 and total * STALL_DEN >= STALL_NUM * prev
+
+
+def _stalled_each(iters: np.ndarray, total: np.ndarray,
+                  prev: np.ndarray) -> np.ndarray:
+    """``_stalled`` element-wise over ``(B,)`` host arrays (the batched
+    driver's per-graph test), in int64 so no product wraps."""
+    iters, total, prev = (np.asarray(a, np.int64) for a in (iters, total, prev))
+    return (iters >= 3) & (total * STALL_DEN >= STALL_NUM * prev)
 
 
 def _class_cells(acc_widths, cells_k, tail_width: int, tail_cells: int):
@@ -510,6 +538,8 @@ def run_ragged_engine(
     algorithm: str = "data_driven_sgr",
     pack_degrees: bool = False,
     colors_init=None,
+    stall_serializes_all: bool = True,
+    class_counts=None,
     trace=False,
 ) -> ColoringResult:
     """Drive the rotated super-step to convergence over degree-tiled classes.
@@ -523,11 +553,17 @@ def run_ragged_engine(
     (``workefficient``) or full-capacity (``fused``) schedule.  ``trace``
     (``True`` or a ring capacity) attaches a ``RunTrace`` of one row per
     super-step, as ``repro`` records them.
+
+    ``colors_init`` warm-starts the engine (incremental recoloring): an
+    ``(n + 1,)`` colour array whose entries outside the worklists stay
+    fixed, so ``classes`` need only hold the live frontier and the work
+    accounting charges that frontier, not n; no bootstrap step is skipped.
+    ``stall_serializes_all=False`` keeps a stall's tail to the live
+    worklist instead of re-greedying the whole graph.  ``class_counts``
+    gives each class's true live count when its worklist carries trailing
+    sentinel padding; only the accounting and the tail and stall tests read
+    it, as the sentinel lanes are inert.
     """
-    if colors_init is not None:
-        raise NotImplementedError(
-            "colors_init= (warm-started recoloring) is not ported yet "
-            "(ROADMAP A9)")
     if pack_degrees and not packed_gather_ok(tail_width):
         from repro_torch.errors import CapacityError
 
@@ -539,16 +575,27 @@ def run_ragged_engine(
         raise ValueError(f"unknown mode {mode!r}")
     device = provider.device
     caps0 = [int(c.shape[0]) for c in classes]
-    colors_ext = torch.zeros((n + 1,), dtype=torch.int32, device=device)
-    # Bootstrap identity: the first rotated step of an unchunked worklist
-    # FirstFits every vertex against an all-zero tile, so everyone takes
-    # color 1 and the worklist is unchanged.  Materialize that constant.
+    counts_init = (caps0 if class_counts is None
+                   else [int(c) for c in class_counts])
     boot_iters = 0
-    skip_bootstrap = coarsen <= 1 and (
-        coarsen_lanes is None or coarsen_lanes >= max(caps0, default=1))
-    if skip_bootstrap and max_iters >= 1:
-        colors_ext[:n] = 1
-        boot_iters = 1
+    if colors_init is not None:
+        colors_ext = torch.as_tensor(colors_init, dtype=torch.int32).to(
+            device).clone()
+        if colors_ext.shape != (n + 1,):
+            raise ValueError(f"colors_init has shape {tuple(colors_ext.shape)}, "
+                             f"expected ({n + 1},)")
+    else:
+        colors_ext = torch.zeros((n + 1,), dtype=torch.int32, device=device)
+        # Bootstrap identity: the first rotated step of an unchunked
+        # worklist FirstFits every vertex against an all-zero tile, so
+        # everyone takes color 1 and the worklist is unchanged.
+        # Materialize that constant (never on a warm start: the rows read
+        # fixed colours, not zeros).
+        skip_bootstrap = coarsen <= 1 and (
+            coarsen_lanes is None or coarsen_lanes >= max(caps0, default=1))
+        if skip_bootstrap and max_iters >= 1:
+            colors_ext[:n] = 1
+            boot_iters = 1
     wls = [torch.from_numpy(np.asarray(c, np.int32)).to(device) for c in classes]
     trace_cap = resolve_trace_cap(trace, max_iters)
     rows = HostRing(trace_cap) if trace_cap else None
@@ -558,7 +605,7 @@ def run_ragged_engine(
     result = run(n, provider, deg_ext, wls, tile_widths, acc_widths, tail_width,
                  colors_ext, boot_iters, heuristic, kind, coarsen, coarsen_lanes,
                  tail_enabled, tail_threshold, max_iters, algorithm, pack_degrees,
-                 rows)
+                 rows, counts_init, stall_serializes_all)
     if rows is not None:
         result.trace = assemble_trace(rows.rows(), result.iterations, trace_cap,
                                       f"{algorithm}:{mode}")
@@ -586,11 +633,12 @@ def _run_ragged_workefficient(
     n, provider, deg_ext, wls, tile_widths, acc_widths, tail_width,
     colors_ext, boot_iters, heuristic, kind, coarsen, coarsen_lanes,
     tail_enabled, tail_threshold, max_iters, algorithm, pack_degrees, rows,
+    counts_init, stall_serializes_all,
 ):
     """The host loop: each class re-sliced to the next pow2 of its count."""
     K = len(wls)
     caps = [int(w.shape[0]) for w in wls]
-    counts = list(caps)
+    counts = list(counts_init)
     iters = boot_iters
     work = n if boot_iters else 0
     padded = 0
@@ -637,7 +685,7 @@ def _run_ragged_workefficient(
     converged = total == 0
     tail_cells = 0
     if total > 0 and iters < max_iters and tail_enabled:
-        if stalled:
+        if stalled and stall_serializes_all:
             # speculation failed to make progress — discard it and run one
             # clean largest-degree-first sequential greedy over the graph
             tail = torch.arange(n, dtype=torch.int32, device=colors_ext.device)
@@ -648,7 +696,7 @@ def _run_ragged_workefficient(
             tail[:total] = live
         colors_ext, tail_cells = _run_tail(provider, deg_ext, colors_ext, tail,
                                            tail_width, total, stalled, rows)
-        work += n if stalled else total
+        work += n if stalled and stall_serializes_all else total
         padded += tail_cells
         iters += 1
         converged = True
@@ -663,14 +711,16 @@ def _run_ragged_fused(
     n, provider, deg_ext, wls, tile_widths, acc_widths, tail_width,
     colors_ext, boot_iters, heuristic, kind, coarsen, coarsen_lanes,
     tail_enabled, tail_threshold, max_iters, algorithm, pack_degrees, rows,
+    counts_init, stall_serializes_all,
 ):
     """``repro``'s single-program schedule (``_fused_spec_loop``) as a host
     loop: every step dispatches every class at full capacity, so the work
     accounting charges ``spec_steps × Σ caps × acc_widths`` cells."""
     K = len(wls)
     caps = [int(w.shape[0]) for w in wls]
-    # cold runs partition all n vertices, so the initial live count is n
-    init_total = sum(caps)
+    # cold runs partition all n vertices, so the initial live count is n;
+    # warm starts charge the true counts of their padded frontier buffers
+    init_total = sum(counts_init)
     chunks = [coarsen] * K
     if coarsen_lanes:
         chunks = [max(1, math.ceil(c / coarsen_lanes)) for c in caps]
@@ -679,7 +729,7 @@ def _run_ragged_fused(
                 tuple(tile_widths), heuristic, kind, provider.device.type,
                 tuple(chunks), tail_enabled, max_iters, boot_iters,
                 pack_degrees, n, 0 if rows is None else rows.cap)
-    counts = list(caps)
+    counts = list(counts_init)
     it, work, prev = boot_iters, 0, init_total
     with span("superstep_loop", mode="fused"), jit_span("fused_spec_loop",
                                                         loop_key):
@@ -711,13 +761,13 @@ def _run_ragged_fused(
     tail_cells = 0
     if total > 0 and iters < max_iters and tail_enabled:
         stalled = total > tail_threshold and _stalled(iters, total, prev)
-        if stalled:
+        if stalled and stall_serializes_all:
             tail = torch.arange(n, dtype=torch.int32, device=colors_ext.device)
         else:
             tail = torch.cat(wls) if K > 1 else wls[0]
         colors_ext, tail_cells = _run_tail(provider, deg_ext, colors_ext, tail,
                                            tail_width, total, stalled, rows)
-        work_items += n if stalled else total
+        work_items += n if stalled and stall_serializes_all else total
         padded += tail_cells
         iters += 1
         converged = True

@@ -222,6 +222,20 @@ def compose_pairs(
     return v, w
 
 
+def _gather_ragged(offsets: np.ndarray, values: np.ndarray, ids) -> np.ndarray:
+    """Concatenated ``values[offsets[v]:offsets[v+1]]`` slices for ``ids``."""
+    ids = np.asarray(ids, dtype=np.int64)
+    starts = offsets[ids].astype(np.int64)
+    lens = (offsets[ids + 1] - offsets[ids]).astype(np.int64)
+    total = int(lens.sum())
+    if total == 0:
+        return np.zeros(0, values.dtype)
+    pos = np.arange(total, dtype=np.int64) - np.repeat(
+        np.cumsum(lens) - lens, lens
+    )
+    return values[np.repeat(starts, lens) + pos]
+
+
 def csr_from_edges(
     n: int,
     src: np.ndarray,

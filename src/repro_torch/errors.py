@@ -1,6 +1,7 @@
 """Structured errors of the port (counterpart of ``repro.errors``).
 
-Only the classes the ported slices raise are here; ``Overloaded`` and
+Only the classes the ported slices raise are here: the batched engine and
+the streaming sessions raise these too.  ``Overloaded`` and
 ``SessionEvicted`` arrive with the service (ROADMAP A12).  ``IngestError``
 lives here rather than beside ``IngestReport`` as in ``repro``: it only
 reads the report it is given.

@@ -28,7 +28,7 @@ from repro_torch.core.csr import CSRGraph
 from repro_torch.graphs import generators as G
 from repro_torch.graphs.rmat import RMAT_ER, RMAT_G, rmat
 
-__all__ = ["SUITE", "build_graph"]
+__all__ = ["SUITE", "build_graph", "serving_mix"]
 
 # name -> callable(scale) -> CSRGraph.  Nominal n at scale=1.0 is ~64k-128k
 # vertices per graph (the whole suite colors in seconds on one CPU core).
@@ -52,3 +52,19 @@ SUITE: dict[str, Callable[[float], CSRGraph]] = {
 def build_graph(name: str, scale: float = 1.0) -> CSRGraph:
     return SUITE[name](scale)
 
+
+
+def serving_mix(B: int, scale: float = 1.0) -> list[CSRGraph]:
+    """B heterogeneous graphs cycling topology family, size, and density.
+
+    The stand-in for a serving workload (many users, many graph shapes),
+    the batched engine's traffic mix.
+    """
+    gens = [
+        lambda i: G.erdos_renyi(int(2000 * scale) + 37 * i, 6.0, seed=i),
+        lambda i: G.power_law(int(2500 * scale) + 53 * i, 7.0, seed=i),
+        lambda i: G.grid2d(int(30 * max(scale, 0.1)) + i % 7, 40),
+        lambda i: G.small_world(int(1800 * scale) + 29 * i, 6, seed=i),
+        lambda i: G.road(int(1500 * scale) + 41 * i, seed=i),
+    ]
+    return [gens[i % len(gens)](i) for i in range(B)]

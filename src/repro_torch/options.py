@@ -109,6 +109,13 @@ class ColorOptions:
         merged["extra"] = extra
         return cls(**merged)
 
+    def merged(self, **kwargs) -> "ColorOptions":
+        """A copy with ``kwargs`` merged over this object (kwargs win)."""
+        return ColorOptions.normalize(self, **kwargs)
+
+    def extra_dict(self) -> dict:
+        return dict(self.extra)
+
     def engine_kwargs(self) -> dict:
         """The kwargs an algorithm adapter receives: set knobs only.
 
@@ -125,4 +132,35 @@ class ColorOptions:
         if self.trace:
             out["trace"] = self.trace
         out.update(self.extra)
+        return out
+
+    def session_kwargs(self) -> dict:
+        """The kwargs ``ColoringSession`` accepts (``open_session``).
+
+        Set knobs only, as ``engine_kwargs``.  A session runs its own
+        engine (ragged frontier recolors), so ``engine`` is refused, and
+        ``ensure_valid=True`` becomes ``on_fail="ladder"`` unless an
+        explicit ``on_fail`` rides in ``extra``.
+        """
+        if self.engine is not None:
+            raise ValueError(
+                f"engine={self.engine!r} does not apply to sessions; the "
+                "streaming engine is fixed (ragged frontier recolors)")
+        if self.algorithm not in (None, "dynamic"):
+            raise ValueError(
+                f"algorithm={self.algorithm!r} does not apply to sessions "
+                "(sessions ARE the 'dynamic' algorithm)")
+        out: dict = {}
+        for key in ("backend", "heuristic", "firstfit", "max_iters",
+                    "validate_input"):
+            value = getattr(self, key)
+            if value is not None:
+                out[key] = value
+        if self.tail_serial is not UNSET:
+            out["tail_serial"] = self.tail_serial
+        if self.trace:
+            out["trace"] = self.trace
+        out.update(self.extra)
+        if self.ensure_valid:
+            out.setdefault("on_fail", "ladder")
         return out

@@ -366,9 +366,7 @@ def test_core_reexports_the_ported_names():
     import repro.core
     import repro_torch.core
 
-    waiting = {"GraphBatch", "PartitionedCSR", "color_distributed",
-               "color_batch_fused", "color_batch_sharded", "SessionBatch",
-               "open_session_batch", "batched_ragged_step", "batched_sgr_step"}
+    waiting = {"PartitionedCSR", "color_distributed"}  # ROADMAP A11
     assert set(repro_torch.core.__all__) == set(repro.core.__all__) - waiting
     for name in repro_torch.core.__all__:
         assert getattr(repro_torch.core, name) is not None
@@ -376,8 +374,8 @@ def test_core_reexports_the_ported_names():
 
 
 def test_algorithms_equal_repro_but_dynamic():
-    assert repro_torch.algorithms() == tuple(
-        a for a in repro.algorithms() if a != "dynamic")
+    # "dynamic" was the one missing until ROADMAP A9 was ported
+    assert repro_torch.algorithms() == repro.algorithms()
     for name in ("serial", "topology", "jp", "multihash", "threestep"):
         assert repro_torch.get_algorithm(name).__module__.startswith(
             "repro_torch.core.")

@@ -246,8 +246,8 @@ def test_color_without_device_raises_without_a_card():
 
 
 # options that raised NotImplementedError naming their ROADMAP item; A5
-# (the baselines), A6 (trace=) and A10 (ingest, the ladder) are ported, so
-# only A9 and A11 still raise
+# (the baselines), A6 (trace=), A10 (ingest, the ladder) and A9 (the
+# dynamic algorithm) are ported, so only A11 still raises
 NOT_PORTED = [
     ("engine-sharded", (), dict(engine="sharded"), "A11"),
     ("trace", (), dict(trace=True), "A6"),
@@ -261,18 +261,18 @@ NOT_PORTED = [
     ("distance2-sharded", ("distance2",), dict(engine="sharded"), "A11"),
     ("algorithm-dynamic", ("dynamic",), {}, "A9"),
 ]
-PORTED_ITEMS = ("A5", "A6", "A10")
+PORTED_ITEMS = ("A5", "A6", "A9", "A10")
 
 
 @pytest.mark.parametrize("args,opts,item", [c[1:] for c in NOT_PORTED],
                          ids=[c[0] for c in NOT_PORTED])
 def test_options_outside_the_slice_raise_naming_their_item(args, opts, item):
-    """A9 and A11 still raise naming their item.  The options of the items
-    ported since (A5, A6, A10) run: a valid, converged coloring whose
-    fields equal the same call without the option where the option adds
-    only telemetry or checks (their parity with repro is held in
-    ``tests/test_torch_baselines.py``, ``test_torch_obs.py`` and
-    ``test_torch_guarantee.py``)."""
+    """A11 still raises naming its item.  The options of the items ported
+    since (A5, A6, A9, A10) run: a valid, converged coloring whose fields
+    equal the same call without the option where the option adds only
+    telemetry or checks (their parity with repro is held in
+    ``tests/test_torch_baselines.py``, ``test_torch_obs.py``,
+    ``test_torch_dynamic.py`` and ``test_torch_guarantee.py``)."""
     g = erdos_renyi(300, 5.0, seed=1)
     if item not in PORTED_ITEMS:
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
@@ -301,13 +301,21 @@ def test_unchunked_coarsen_lanes_is_in_the_slice():
 
 
 def test_warm_start_raises_naming_its_item():
+    """``colors_init=`` raised naming A9 until A9 was ported; it now runs.
+    From all-zero colours its first step is the bootstrap the cold run
+    skips (every vertex takes colour 1), so colours, iterations and work
+    items equal the cold run's and ``padded_work`` adds that step's cells
+    (its parity with repro is held in ``tests/test_torch_dynamic.py``)."""
     g = grid2d(6, 6)
     dev = DeviceCSR.from_csr(g, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        run_ragged_engine(n=g.n, provider=dev, deg_ext=dev.deg_ext,
-                          classes=[np.arange(g.n, dtype=np.int32)],
-                          tile_widths=[4], acc_widths=[4], tail_width=4,
-                          max_iters=10, colors_init=np.zeros(g.n + 1, np.int32))
+    kw = dict(n=g.n, provider=dev, deg_ext=dev.deg_ext,
+              classes=[np.arange(g.n, dtype=np.int32)], tile_widths=[4],
+              acc_widths=[4], tail_width=4, max_iters=10)
+    cold = run_ragged_engine(**kw)
+    warm = run_ragged_engine(**kw, colors_init=np.zeros(g.n + 1, np.int32))
+    np.testing.assert_array_equal(cold.colors, warm.colors)
+    assert (warm.iterations, warm.work_items) == (cold.iterations, cold.work_items)
+    assert warm.padded_work == cold.padded_work + g.n * 4
 
 
 def test_packed_capacity_guard():
@@ -350,8 +358,8 @@ def test_auto_backends_run_on_cpu(backend):
 
 def test_public_surface():
     assert repro_torch.algorithms() == (
-        "bipartite", "data_driven", "distance2", "fused", "jp", "multihash",
-        "serial", "threestep", "topology")
+        "bipartite", "data_driven", "distance2", "dynamic", "fused", "jp",
+        "multihash", "serial", "threestep", "topology")
     assert repro_torch.get_algorithm("data_driven").__name__ == "color_data_driven"
     assert issubclass(repro_torch.CapacityError, repro_torch.ReproError)
     assert issubclass(repro_torch.IngestError, (repro_torch.ReproError, ValueError))
@@ -944,3 +952,134 @@ def test_cuda_all_to_all_rounds_match_cpu(cuda_device, zero_counts):
     assert all_to_all_rounds(8, device=cuda_device) == all_to_all_rounds(
         8, device="cpu")
     assert superstep_csr.launches > 0
+
+
+def _same_results(a_list, b_list):
+    assert len(a_list) == len(b_list)
+    for a, b in zip(a_list, b_list):
+        np.testing.assert_array_equal(a.colors, b.colors)
+        assert all(getattr(a, f) == getattr(b, f) for f in FIELDS)
+        assert a.degradations == b.degradations
+        if b.trace is not None:
+            assert torch.equal(torch.from_numpy(a.trace.steps),
+                               torch.from_numpy(b.trace.steps))
+
+
+def _counting_steps(monkeypatch):
+    """Count ``ragged_superstep`` calls (the batch's global steps) and make
+    every provider's ``rows`` and ``gather_rows`` raise inside them."""
+    real = core_coloring.ragged_superstep
+    calls = []
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the superstep gathered a tile on the card")
+
+    def guarded(provider, *args, **kwargs):
+        calls.append(1)
+        with monkeypatch.context() as m:
+            m.setattr(provider, "rows", refuse)
+            m.setattr(core_coloring, "gather_rows", refuse)
+            return real(provider, *args, **kwargs)
+
+    monkeypatch.setattr(core_coloring, "ragged_superstep", guarded)
+    return calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm", ["fused", "distance2"])
+@pytest.mark.parametrize("heuristic", ["degree", "id"])
+def test_cuda_batch_matches_cpu_one_k3_launch_a_step(cuda_device, zero_counts,
+                                                      monkeypatch, algorithm,
+                                                      heuristic):
+    """The batched engine on the card equals the CPU run, traced, in every
+    field; one pre-packed batch takes one K3 launch a global step, at most
+    one K2 launch, and gathers no tile."""
+    from repro_torch.core.batch import GraphBatch, color_batch_fused
+    from repro_torch.graphs import serving_mix
+
+    graphs = serving_mix(6, 0.2) + [grid2d(4, 5)]  # the grid freezes at once
+    opts = dict(heuristic=heuristic, trace=True)
+    a = repro_torch.color_batch(graphs, algorithm, device=cuda_device, **opts)
+    b = repro_torch.color_batch(graphs, algorithm, device="cpu", **opts)
+    _same_results(a, b)
+    d2 = algorithm == "distance2"
+    packed = GraphBatch.from_graphs(graphs, distance2=d2, device=cuda_device)
+    for k in KERNELS:
+        k.launches = 0
+    steps = _counting_steps(monkeypatch)
+    got = color_batch_fused(packed, distance2=d2, heuristic=heuristic)
+    monkeypatch.undo()
+    assert superstep_tile.launches == len(steps) > 0
+    assert serial_tail_csr.launches <= 1 and superstep_csr.launches == 0
+    want = color_batch_fused(GraphBatch.from_graphs(graphs, distance2=d2,
+                                                    device="cpu"),
+                             distance2=d2, heuristic=heuristic)
+    _same_results(got, want)
+    valid = validate_d2 if d2 else is_valid_coloring
+    assert all(valid(g, r.colors) for g, r in zip(graphs, got))
+
+
+@pytest.mark.cuda
+def test_cuda_batched_steps_match_cpu(cuda_device, zero_counts):
+    from repro_torch.core.batch import (
+        GraphBatch,
+        batched_ragged_step,
+        batched_sgr_step,
+    )
+
+    graphs = [erdos_renyi(300, 6.0, seed=3), grid2d(9, 20), power_law(200, 5.0, seed=2)]
+    batch = GraphBatch.from_graphs(graphs, device="cpu")
+    B, L = batch.B, batch.n_max
+    rng = np.random.default_rng(5)
+    colors = torch.from_numpy(rng.integers(0, 4, (B, L + 1)).astype(np.int32))
+    colors[:, L] = 0
+    lane = torch.arange(L)[None, :]
+    sizes = torch.tensor(batch.sizes)[:, None]
+    colors[:, :L][lane >= sizes] = 0
+    wl = torch.where(lane < sizes, lane, L).to(torch.int32)
+    args = (batch.adj.contiguous(), batch.deg_ext.contiguous(), colors, wl)
+    for step, kw, kernels in (
+            (batched_sgr_step, dict(coarsen_ff=1), (firstfit_rows, conflict_rows)),
+            (batched_sgr_step, dict(coarsen_ff=2, coarsen_cr=3),
+             (firstfit_rows, conflict_rows)),
+            (batched_ragged_step, {}, (superstep_tile,))):
+        for k in KERNELS:
+            k.launches = 0
+        a = step(*(t.to(cuda_device) for t in args), heuristic="id", **kw)
+        assert all(k.launches > 0 for k in kernels)
+        b = step(*args, heuristic="id", **kw)
+        assert all(torch.equal(x.cpu(), y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fused", "workefficient"])
+def test_cuda_session_matches_cpu(cuda_device, zero_counts, monkeypatch, mode,
+                                  tmp_path):
+    """Three churn rounds of a session on the card equal the CPU session's:
+    results, frontier, metrics and the journal's records; the recolors run
+    K1 (or K3) and gather no tile."""
+    from repro_torch.dynamic import churn_delta, open_session
+    from repro_torch.dynamic.journal import SessionJournal
+
+    g = build_graph("rmat-g", 0.1)
+    a = open_session(g, device=cuda_device, mode=mode, trace=True,
+                     durable_dir=str(tmp_path / "card"), snapshot_every=3)
+    b = open_session(g, device="cpu", mode=mode, trace=True,
+                     durable_dir=str(tmp_path / "cpu"), snapshot_every=3)
+    _same_results([a.result], [b.result])
+    rng_a, rng_b = np.random.default_rng(14), np.random.default_rng(14)
+    for _ in range(3):
+        for s, rng in ((a, rng_a), (b, rng_b)):
+            rem, add = churn_delta(s.graph, 0.01, rng)
+            s.apply_delta(remove_edges=rem, add_edges=add)
+        np.testing.assert_array_equal(a.frontier(), b.frontier())
+        for k in KERNELS:
+            k.launches = 0
+        _counting_steps(monkeypatch)
+        ra = a.recolor()
+        monkeypatch.undo()
+        assert superstep_csr.launches + superstep_tile.launches > 0
+        _same_results([ra], [b.recolor()])
+        assert a.metrics() == b.metrics() and a.validate()
+    assert (list(SessionJournal(str(tmp_path / "card")).records())
+            == list(SessionJournal(str(tmp_path / "cpu")).records()))
