@@ -103,8 +103,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
              uncut: ``serial`` (one run on the host), ``topology``,
              ``jp``, ``multihash`` and ``threestep`` beside phase 9's
              default ``data_driven``, each counted (topology and threestep
-             launch K4 and K5 and gather no tile), timed as in phase 9 and
-             valid; colours against serial's and data_driven's speedup over
+             launch K4 and K5 and gather no tile), timed as in phase 9
+             (threestep, seconds of host fix-up a run: its one counted run)
+             and valid; colours against serial's and data_driven's speedup over
              each; the traced default path against the untraced one on
              rmat-er (same colours, ``check()`` passes, both walls); and
              ``ensure_valid=True, max_iters=1`` on rmat-er (the rungs
@@ -122,6 +123,22 @@ Phases, in order; any failure ends the run with a non-zero exit code:
              the four rmat-er graphs in which only the two dirty sessions
              launch.  The host graphs of the phase are built side by side
              in a process pool.
+13. service — ``ColoringService`` on the card: a fixed synchronous
+             sequence on ``serving_mix(8, 0.5)`` (colours under both
+             heuristics, a distance-2 bucket, a slow-path request, two
+             sessions spilling and restoring through a pool of one) through
+             a card and a CPU service, every output and ``metrics()`` apart
+             from its timing field equal; ``serving_mix(16, 40)`` as one
+             async burst (``max_batch`` 16): every colouring valid and equal
+             to the direct fused call, one K3 launch a global step of every
+             micro-batch, at most one K2 launch a micro-batch, no tile
+             gathered; pooled 2^20 sessions (rmat-g and thermal2 under 1%
+             churn, rmat-er's open spilling the LRU one, a touch restoring
+             it, ``pool_size=2``): colours equal to sessions run outside the
+             service, spill and restore ms printed; a flood past
+             ``queue_limit=4``: ``Overloaded``, the queue bounded, every
+             admitted ticket finished, one deliberate failure.  Every
+             worker is stopped before the last line.
 
 The line before the last is the kernels' JSON record, and the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
@@ -182,6 +199,7 @@ from repro_torch.d2.coloring import (  # noqa: E402
 )
 from repro_torch.dynamic import churn_delta  # noqa: E402
 from repro_torch.dynamic.journal import SessionJournal  # noqa: E402
+from repro_torch.errors import Overloaded  # noqa: E402
 from repro_torch.graphs import (  # noqa: E402
     RMAT_ER,
     RMAT_G,
@@ -233,6 +251,7 @@ from repro_torch.kernels.superstep.kernel import (  # noqa: E402
     superstep_tile,
     superstep_tile_ref,
 )
+from repro_torch.launch.coloring_service import ColoringService  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA's data sheet
 RESULT_FIELDS = ("iterations", "work_items", "padded_work", "class_cells",
@@ -2172,6 +2191,8 @@ def check_comparison(graphs: dict, ragged: dict, dev_cuda) -> dict:
                            lambda: color(g, algorithm, device=dev_cuda, **opts),
                            kernels, lambda c: is_valid_coloring(g, c),
                            what=str(opts), guard=no_tile_gathers,
+                           # threestep: seconds of host fix-up a run; one timed run
+                           reps=1 if algorithm == "threestep" else 3,
                            profile=algorithm != "threestep")
             for k, c in out["counts"].items():
                 totals[k] += c
@@ -2549,6 +2570,238 @@ def check_serving(graphs: dict, dev_cuda) -> dict:
     add(stream["launches"])
     sbatch = check_session_batch(four, dev_cuda)
     add(sbatch["launches"])
+    return {"launches": totals, "mix": mix}
+
+
+# --------------------------------------------------------------------------
+# phase 13: the coloring service on the card
+# --------------------------------------------------------------------------
+
+def service_requests(svc, graphs, deltas) -> list:
+    """Phase 13's fixed synchronous sequence: colours under both
+    heuristics, one distance-2 bucket, one slow-path request, and open /
+    delta / recolor / colours / metrics on two sessions (the pool holds
+    one, so each touch spills the other and restores its own)."""
+    out = []
+    for g in graphs:
+        out.append(svc.color(g))
+        out.append(svc.color(g, heuristic="id"))
+    out.append(svc.color(graphs[0], algorithm="distance2"))
+    out.append(svc.color(graphs[1], ensure_valid=True))
+    for sid, b in (("s0", 0), ("s1", 1)):
+        out.append(svc.open_session(sid, graphs[b]))
+    for sid, delta in deltas:
+        out.append(svc.apply_delta(sid, **delta))
+        out.append(svc.recolor(sid))
+        out.append(svc.colors(sid))
+        out.append(svc.session_metrics(sid))
+    m = svc.metrics()
+    m.pop("ewma_request_seconds")  # the one timing field
+    out.append(m)
+    return out
+
+
+def same_outputs(a_list, b_list) -> list:
+    """Where two service sequences differ ([] if nowhere)."""
+    diff = []
+    for i, (a, b) in enumerate(zip(a_list, b_list)):
+        if isinstance(a, ColoringResult):
+            d = same_result(a, b)
+        elif isinstance(a, np.ndarray):
+            d = [] if np.array_equal(a, b) else ["array"]
+        else:
+            d = [] if a == b else [(a, b)]
+        if d:
+            diff.append((i, d))
+    if len(a_list) != len(b_list):
+        diff.append(("length", len(a_list), len(b_list)))
+    return diff
+
+
+def stopped(svc, label: str):
+    """Shut ``svc`` down; fail if its worker is still alive a minute after."""
+    svc.shutdown(wait=False)
+    svc._worker.join(timeout=60)
+    if svc._worker.is_alive():
+        fail(f"service {label}: the worker is still alive after shutdown()")
+
+
+def service_slice(dev_cuda, tmp: str):
+    """Card == CPU: the same sequence through a card and a CPU service."""
+    graphs = serving_mix(8, 0.5)
+    rng = np.random.default_rng(CHURN_SEED)
+    deltas = []
+    for sid, b in (("s0", 0), ("s1", 1), ("s0", 0)):
+        rem, add = churn_delta(graphs[b], 0.02, rng)
+        deltas.append((sid, {"remove_edges": rem, "add_edges": add}))
+    outs = {}
+    for dev in (dev_cuda, "cpu"):
+        svc = ColoringService(pool_size=1, queue_limit=16, max_batch=8,
+                              spill_dir=f"{tmp}/{torch.device(dev).type}",
+                              device=dev)
+        try:
+            outs[dev] = service_requests(svc, graphs, deltas)
+        finally:
+            stopped(svc, f"slice {dev}")
+    diff = same_outputs(outs[dev_cuda], outs["cpu"])
+    m = outs[dev_cuda][-1]
+    if diff or m["failed"] or not (m["spills"] and m["restores"]):
+        fail(f"service slice: card != cpu or a request failed: {diff[:5]} {m}")
+    print(f"service slice on serving_mix(8, 0.5): {len(outs['cpu'])} outputs, "
+          f"{m['microbatches']} micro-batches, {m['slow_requests']} slow, "
+          f"spills {m['spills']} restores {m['restores']}: card == cpu", flush=True)
+
+
+def service_burst(mix, dev_cuda) -> dict:
+    """``serving_mix(16, 40)`` as one async burst: every served colouring
+    valid and equal to the direct fused call; one K3 launch a global step
+    of every micro-batch, at most one K2 launch a micro-batch."""
+    direct = [color(g, "fused", device=dev_cuda) for g in mix]
+    svc = ColoringService(pool_size=2, queue_limit=32, max_batch=16, trace=True,
+                          device=dev_cuda)
+    try:
+        reset_counts()
+        t = time.perf_counter()
+        with no_superstep_gathers(), counted_steps() as steps:
+            tickets = [svc.color(g, wait=False) for g in mix]
+            results = [tk.wait(600) for tk in tickets]
+        burst_ms = (time.perf_counter() - t) * 1e3
+        counts = {k.__name__: k.launches for k in KERNELS}
+        m = svc.metrics()
+        spans = svc.take_spans()
+    finally:
+        stopped(svc, "burst")
+    mb = [e.meta for e in spans if e.name == "serve_microbatch"]
+    if counts["superstep_tile"] != len(steps) or not steps:
+        fail(f"service burst: {counts['superstep_tile']} K3 launches for "
+             f"{len(steps)} global steps")
+    if not 0 < counts["serial_tail_csr"] <= m["microbatches"]:
+        fail(f"service burst: {counts['serial_tail_csr']} K2 launches for "
+             f"{m['microbatches']} micro-batches")
+    for g, r, d in zip(mix, results, direct):
+        if not (r.converged and is_valid_coloring(g, r.colors)
+                and np.array_equal(r.colors, d.colors)):
+            fail("service burst: a served colouring is invalid or differs from "
+                 "the direct fused call")
+    if m["failed"] or m["completed"] != len(mix):
+        fail(f"service burst: {m}")
+    share = sum(x["vertices"] for x in mb) / sum(x["slots"] for x in mb)
+    print(f"service burst serving_mix(16, 40): {burst_ms:.3f} ms for {len(mix)} "
+          f"requests, {m['microbatches']} micro-batches (B {[x['B'] for x in mb]}, "
+          f"padded {[x['padded_B'] for x in mb]}), {len(steps)} global steps, "
+          f"launches { {k: c for k, c in counts.items() if c} }; real vertices "
+          f"{share:.4f} of the padded flat ids; every colouring == direct fused "
+          f"[{card_line()}]", flush=True)
+    return counts
+
+
+def service_sessions(graphs: dict, dev_cuda, tmp: str) -> dict:
+    """Pooled sessions at 2^20 (rmat-g, thermal2, then rmat-er) with
+    ``pool_size=2``: two churn rounds, the third open spills the LRU
+    session, a touch restores it, two more rounds; colours equal sessions
+    run outside the service on the same deltas. The unserved sessions run
+    first, so the launch counts read are the service's alone."""
+    names = ("rmat-g", "thermal2")
+    refs = {n: open_session(graphs[n], device=dev_cuda) for n in names}
+    deltas = {n: [] for n in names}
+    for n in names:
+        rng = np.random.default_rng(CHURN_SEED)
+        for _ in range(4):
+            rem, add = churn_delta(refs[n].graph, CHURN, rng)
+            deltas[n].append({"remove_edges": rem, "add_edges": add})
+            refs[n].apply_delta(**deltas[n][-1])
+            refs[n].recolor()
+    torch.cuda.synchronize()
+    svc = ColoringService(pool_size=2, queue_limit=16, spill_dir=f"{tmp}/spill",
+                          trace=True, device=dev_cuda)
+
+    def rounds(first, last):
+        for i in range(first, last):
+            for n in names:
+                svc.apply_delta(n, **deltas[n][i])
+                svc.recolor(n)
+
+    try:
+        reset_counts()
+        t = time.perf_counter()
+        for n in names:
+            svc.open_session(n, graphs[n])
+        rounds(0, 2)
+        out = svc.open_session("rmat-er", graphs["rmat-er"])  # spills the LRU
+        svc.colors(out["evicted"])                             # restores it
+        rounds(2, 4)
+        got = {n: svc.colors(n) for n in names}
+        m = svc.metrics()
+        spans = svc.take_spans()
+        wall = time.perf_counter() - t
+        counts = {k.__name__: k.launches for k in KERNELS}
+    finally:
+        stopped(svc, "sessions")
+    for n in names:
+        if not (np.array_equal(got[n], refs[n].colors) and refs[n].validate()):
+            fail(f"service sessions {n}: colours differ from the unserved session")
+    if m["spills"] < 1 or m["restores"] < 1 or m["failed"]:
+        fail(f"service sessions: spills {m['spills']} restores {m['restores']} "
+             f"failed {m['failed']}")
+    if not (counts["superstep_csr"] and counts["serial_tail_csr"]):
+        fail(f"service sessions: K1 or K2 not launched: {counts}")
+    ms = {name: [round(e.duration * 1e3, 3) for e in spans if e.name == name]
+          for name in ("serve_spill", "serve_restore")}
+    print(f"service sessions at 2^20 (pool 2; rmat-g, thermal2, rmat-er): "
+          f"{wall:.1f} s for 3 opens and 4 churn rounds of two sessions; "
+          f"evicted {out['evicted']!r}; spill ms {ms['serve_spill']}, restore "
+          f"ms {ms['serve_restore']}; spills {m['spills']} restores "
+          f"{m['restores']}; launches { {k: c for k, c in counts.items() if c} }; "
+          f"colours == the unserved sessions [{card_line()}]", flush=True)
+    return counts
+
+
+def service_overload(mix, dev_cuda):
+    """A flood past ``queue_limit=4``: ``Overloaded`` raised, the queue
+    bounded, every admitted ticket finished; one deliberate error request
+    is the only failure."""
+    g = mix[0]
+    svc = ColoringService(pool_size=1, queue_limit=4, max_batch=2, device=dev_cuda)
+    try:
+        try:
+            svc.recolor("never-opened")
+            fail("service overload: an unknown session did not raise")
+        except KeyError:
+            pass
+        tickets, errors, peak = [], [], 0
+        for _ in range(48):
+            try:
+                tickets.append(svc.color(g, wait=False))
+            except Overloaded as e:
+                errors.append(e)
+            peak = max(peak, svc.metrics()["queue_depth"])
+        results = [tk.wait(600) for tk in tickets]
+        m = svc.metrics()
+    finally:
+        stopped(svc, "overload")
+    if not errors or peak > 4 or any(e.queue_depth > 4 for e in errors):
+        fail(f"service overload: {len(errors)} rejections, queue peak {peak}")
+    if m["failed"] != 1 or m["completed"] != len(tickets) \
+            or m["rejected"] != len(errors):
+        fail(f"service overload: {m}")
+    if not all(is_valid_coloring(g, r.colors) for r in results):
+        fail("service overload: an admitted colouring is not valid")
+    print(f"service overload: 48 requests, {len(tickets)} admitted and finished, "
+          f"{len(errors)} Overloaded (payload {errors[0].payload()}), queue peak "
+          f"{peak}/4, failed 1 (the deliberate unknown session)", flush=True)
+
+
+def check_service(graphs: dict, mix, dev_cuda) -> dict:
+    """Phase 13: the service at small scale (card == CPU), the serving mix
+    as one burst, pooled 2^20 sessions with spill and restore, overload."""
+    totals = {k.__name__: 0 for k in KERNELS}
+    with tempfile.TemporaryDirectory() as tmp:
+        service_slice(dev_cuda, tmp)
+        for counts in (service_burst(mix, dev_cuda),
+                       service_sessions(graphs, dev_cuda, tmp)):
+            for k, c in counts.items():
+                totals[k] += c
+        service_overload(mix, dev_cuda)
     return {"launches": totals}
 
 
@@ -2648,6 +2901,11 @@ def main():
     for k, c in serving["launches"].items():
         full["launches"][k] += c
     print(f"batch and stream took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    service = check_service(full["graphs"], serving["mix"], dev_cuda)
+    for k, c in service["launches"].items():
+        full["launches"][k] += c
+    print(f"service took {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = kernels_record(full)
     print(card)

@@ -1,8 +1,9 @@
 """repro_torch: the PyTorch and CUDA port of ``repro`` (csrcolor-jax).
 
 Public entry points: ``repro_torch.color``, ``color_batch`` and
-``open_session`` (lazy re-exports of ``repro_torch.api``), and the fault
-injectors of ``repro_torch.faultlab``.  They run on the card by default
+``open_session`` (lazy re-exports of ``repro_torch.api``), the
+``ColoringService`` of ``repro_torch.launch.coloring_service``, and the
+fault injectors of ``repro_torch.faultlab``.  They run on the card by default
 (``device="cuda"``), through hand-written CUDA kernels for Hopper
 (``csrc/``); ``device="cpu"`` runs their plain PyTorch versions.  The package imports no JAX and nothing
 of ``repro``.  See README.md for what this slice covers.
@@ -14,7 +15,8 @@ _API_NAMES = ("color", "color_batch", "algorithms", "get_algorithm",
               "register", "open_session")
 _OPTIONS_NAMES = ("ColorOptions",)
 _ERROR_NAMES = ("ReproError", "IngestError", "CapacityError",
-                "NonConvergenceError")
+                "NonConvergenceError", "Overloaded", "SessionEvicted")
+_SERVICE_NAMES = ("ColoringService",)
 
 
 def __getattr__(name):
@@ -31,6 +33,10 @@ def __getattr__(name):
         from repro_torch import errors
 
         return getattr(errors, name)
+    if name in _SERVICE_NAMES:
+        from repro_torch.launch import coloring_service
+
+        return getattr(coloring_service, name)
     if name == "faultlab":
         import importlib
 
@@ -40,4 +46,4 @@ def __getattr__(name):
 
 def __dir__():
     return sorted(list(globals()) + list(_API_NAMES) + list(_OPTIONS_NAMES)
-                  + list(_ERROR_NAMES) + ["faultlab"])
+                  + list(_ERROR_NAMES) + list(_SERVICE_NAMES) + ["faultlab"])

@@ -206,6 +206,11 @@ class GraphBatch:
         return cls(deg_t, csr, sizes, n_max, distance2)
 
 
+# the zero-vertex graph: padding for a batch count (the coloring service);
+# in flat ids it costs n_max + 1 id slots and no row
+_EMPTY = CSRGraph(np.zeros(1, np.int64), np.zeros(0, np.int32))
+
+
 def _flat_state(adj, deg_ext, colors_ext, wl):
     """``repro``'s ``(B, …)`` step arguments as flat global-id tensors:
     ``(table, deg, colors, wl2d, offsets, N)``."""

@@ -1,14 +1,15 @@
 """Structured errors of the port (counterpart of ``repro.errors``).
 
-Only the classes the ported slices raise are here: the batched engine and
-the streaming sessions raise these too.  ``Overloaded`` and
-``SessionEvicted`` arrive with the service (ROADMAP A12).  ``IngestError``
-lives here rather than beside ``IngestReport`` as in ``repro``: it only
-reads the report it is given.
+Every class of ``repro.errors``: the engines, the batched engine and the
+streaming sessions raise the first four, the coloring service
+(``repro_torch.launch.coloring_service``) ``Overloaded`` and
+``SessionEvicted``.  ``IngestError`` lives here rather than beside
+``IngestReport`` as in ``repro``: it only reads the report it is given.
 """
 from __future__ import annotations
 
-__all__ = ["ReproError", "IngestError", "CapacityError", "NonConvergenceError"]
+__all__ = ["ReproError", "IngestError", "CapacityError", "NonConvergenceError",
+           "Overloaded", "SessionEvicted"]
 
 
 class ReproError(Exception):
@@ -57,3 +58,41 @@ class NonConvergenceError(ReproError, RuntimeError, ValueError):
     legacy bases of ``repro``'s class: its dynamic engine raised
     ``RuntimeError`` here, its bipartite compressor ``ValueError``.
     """
+
+
+class Overloaded(ReproError):
+    """Admission-control rejection: the bounded request queue is full.
+
+    The service's backpressure contract: a queue at its limit rejects
+    *immediately* with this structured error instead of growing without
+    bound.  ``retry_after`` is a coarse hint (seconds) derived from the
+    service's recent drain rate.
+    """
+
+    def __init__(self, message: str, *, queue_depth: int, limit: int,
+                 retry_after: float = 0.0):
+        super().__init__(message)
+        self.queue_depth = int(queue_depth)
+        self.limit = int(limit)
+        self.retry_after = float(retry_after)
+
+    def _fields(self) -> dict:
+        return {"queue_depth": self.queue_depth, "limit": self.limit,
+                "retry_after": self.retry_after}
+
+
+class SessionEvicted(ReproError, LookupError):
+    """The addressed pooled session was LRU-evicted without durable spill.
+
+    Its in-memory state is gone and there is no journal to resurrect it
+    from; the client must re-open the session (services opened with a
+    ``spill_dir`` restore evicted sessions transparently instead of
+    raising this).
+    """
+
+    def __init__(self, message: str, *, session_id=None):
+        super().__init__(message)
+        self.session_id = session_id
+
+    def _fields(self) -> dict:
+        return {"session_id": self.session_id}

@@ -164,3 +164,19 @@ class ColorOptions:
         if self.ensure_valid:
             out.setdefault("on_fail", "ladder")
         return out
+
+    def describe(self) -> str:
+        """Compact one-line rendering of the set knobs (for logs/metrics);
+        ``repro``'s string character for character, so the service's bucket
+        names match."""
+        parts = []
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if f.name == "extra":
+                parts.extend(f"{k}={val!r}" for k, val in self.extra)
+            elif f.name == "tail_serial":
+                if v is not UNSET:
+                    parts.append(f"tail_serial={v!r}")
+            elif v not in (None, False):
+                parts.append(f"{f.name}={v!r}")
+        return "ColorOptions(" + ", ".join(parts) + ")"

@@ -70,7 +70,8 @@ from repro_torch.kernels.superstep.kernel import (
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "benchmarks" / "port_serve.py",
+    *sorted((ROOT / "examples").glob("port_*.py"))]
 FIELDS = ("iterations", "work_items", "padded_work", "class_cells", "converged")
 KERNELS = (superstep_csr, serial_tail_csr, superstep_tile, firstfit_tile,
            conflict_tile, firstfit_rows, conflict_rows, d2_firstfit)
@@ -1083,3 +1084,94 @@ def test_cuda_session_matches_cpu(cuda_device, zero_counts, monkeypatch, mode,
         assert a.metrics() == b.metrics() and a.validate()
     assert (list(SessionJournal(str(tmp_path / "card")).records())
             == list(SessionJournal(str(tmp_path / "cpu")).records()))
+
+
+def _service_requests(svc, graphs, sess_graph, rng):
+    """A fixed synchronous sequence: colours under both heuristics, a
+    distance-2 bucket, a slow-path request, and open / delta / recolor /
+    colours / metrics on two sessions (the pool holds one, so the second
+    open evicts the first to the spill directory). Shared with
+    ``test_torch_service.py``, which runs it through ``repro``'s service."""
+    out = []
+    for g in graphs:
+        out.append(svc.color(g))
+        out.append(svc.color(g, heuristic="id"))
+    out.append(svc.color(graphs[0], algorithm="distance2"))
+    out.append(svc.color(graphs[1], ensure_valid=True, max_iters=2))
+    out.append(svc.open_session("s1", sess_graph))
+    out.append(svc.open_session("s2", sess_graph, heuristic="id"))
+    for sid in ("s1", "s2", "s1"):
+        a, b = rng.integers(0, sess_graph.n, 12), rng.integers(0, sess_graph.n, 12)
+        out.append(svc.apply_delta(sid, add_edges=(a, b)))
+        out.append(svc.recolor(sid))
+        out.append(svc.colors(sid))
+        out.append(svc.session_metrics(sid))
+    out.append(svc.maintain())
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_service_matches_cpu(cuda_device, zero_counts, monkeypatch, tmp_path):
+    """The service on the card equals the service on the CPU for a small
+    mix: every result field, array, summary and ``metrics()`` apart from
+    its timing field; the card's micro-batches launch K3 a global step."""
+    from repro_torch.core.coloring import ColoringResult
+    from repro_torch.graphs import serving_mix
+    from repro_torch.launch.coloring_service import ColoringService
+
+    graphs = serving_mix(6, 0.2)
+    outs = {}
+    for dev in (cuda_device, "cpu"):
+        svc = ColoringService(pool_size=1, queue_limit=16, spill_dir=str(
+            tmp_path / torch.device(dev).type), device=dev)
+        try:
+            if dev != "cpu":
+                steps = _counting_steps(monkeypatch)
+            out = _service_requests(svc, graphs, graphs[2],
+                                    np.random.default_rng(5))
+            m = svc.metrics()
+            m.pop("ewma_request_seconds")
+            outs[dev] = out, m
+            monkeypatch.undo()
+        finally:
+            svc.shutdown()
+        assert not svc._worker.is_alive()
+    (a, ma), (b, mb) = outs[cuda_device], outs["cpu"]
+    assert ma == mb and ma["failed"] == 0 and ma["restores"] > 0
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        if isinstance(x, ColoringResult):
+            _same_results([x], [y])
+        elif isinstance(x, np.ndarray):
+            np.testing.assert_array_equal(x, y)
+        else:
+            assert x == y
+    # a global step of a micro-batch is one K3 launch, a session's class
+    # sub-step a K1 (or K3) launch
+    assert superstep_tile.launches > 0 and superstep_csr.launches > 0
+    assert superstep_tile.launches + superstep_csr.launches >= len(steps) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_service_worker_error_reaches_the_caller(cuda_device, zero_counts,
+                                                     monkeypatch):
+    """An error raised in the worker on the card (a kernel wrapper's launch
+    check failing) reaches the caller through its ticket, is not retried,
+    and the worker serves the next request on the card."""
+    from repro_torch.launch.coloring_service import ColoringService
+
+    g = erdos_renyi(2000, 6.0, seed=1)
+    want = repro_torch.color(g, "fused", device=cuda_device).colors
+    with ColoringService(pool_size=1, queue_limit=8, device=cuda_device) as svc:
+        def failed_launch(*args, **kwargs):
+            raise RuntimeError("superstep_rows launch failed: CUDA error 700 "
+                               "(an illegal memory access was encountered)")
+
+        monkeypatch.setattr(core_coloring, "superstep_rows", failed_launch)
+        with pytest.raises(RuntimeError, match="CUDA error 700"):
+            svc.color(g)
+        monkeypatch.undo()
+        np.testing.assert_array_equal(svc.color(g).colors, want)
+        m = svc.metrics()
+    assert not svc._worker.is_alive()
+    assert m["failed"] == 1 and m["completed"] == 1 and m["slow_requests"] == 0
