@@ -139,6 +139,22 @@ Phases, in order; any failure ends the run with a non-zero exit code:
              ``queue_limit=4``: ``Overloaded``, the queue bounded, every
              admitted ticket finished, one deliberate failure.  Every
              worker is stopped before the last line.
+14. sharded — the sharded engine (one shard per entry of ``devices=``,
+             the halo exchange a super-step, the coordinated tail) at small
+             scale on k = 2 and 3 shards of the card and of the CPU, every
+             field, the halo bytes and trace rows equal: distance-1 on
+             rmat-er, rmat-g (n < 2^15: the packed halo word) and thermal2
+             (n >= 2^15: (id, colour) pairs) at 0.25, both heuristics and
+             the tail off; distance-2 and bipartite in both strategies;
+             ``color_batch`` with B >= and < the shard count.  Then four
+             shards of the card at full size: rmat-er (colours, iterations
+             and work items == the card's ragged fused call), distance-2 on
+             the fly on rmat-er and bipartite on the fly on
+             ``jacobian_band(1<<20, 3)`` (colours == the single-device
+             call), each counted (one K3 launch a shard a class a
+             speculative step, K2 for the tail, no tile gathered, no K1) and
+             timed as in phase 9; and K3 over shard 0's rows read in place
+             at rmat-er's first step against its plain version.
 
 The line before the last is the kernels' JSON record, and the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
@@ -183,7 +199,13 @@ from repro_torch.core.coloring import (  # noqa: E402
     order_tail,
     run_workefficient_loop,
 )
-from repro_torch.core.csr import DeviceCSR, csr_from_edges, next_pow2  # noqa: E402
+from repro_torch.core.csr import (  # noqa: E402
+    DeviceCSR,
+    PartitionedCSR,
+    csr_from_edges,
+    next_pow2,
+)
+from repro_torch.core.distributed import ShardRows  # noqa: E402
 from repro_torch.core.serial import greedy_serial  # noqa: E402
 from repro_torch.core.validate import is_valid_coloring  # noqa: E402
 from repro_torch.d2 import (  # noqa: E402
@@ -2805,10 +2827,175 @@ def check_service(graphs: dict, mix, dev_cuda) -> dict:
     return {"launches": totals}
 
 
+# --------------------------------------------------------------------------
+# phase 14: the sharded engine
+# --------------------------------------------------------------------------
+
+SHARDS = 4  # shards of the one card at full size
+
+
+def same_sharded(a, b) -> list:
+    """``same_batch`` with the halo bytes ([] if nothing differs)."""
+    diff = same_batch([a], [b])
+    if a.halo_bytes_per_step != b.halo_bytes_per_step:
+        diff.append(("halo_bytes_per_step", a.halo_bytes_per_step,
+                     b.halo_bytes_per_step))
+    return diff
+
+
+def sharded_slice(dev_cuda):
+    """Card == CPU at small scale: the sharded engine on k in (2, 3) shards
+    of the card and of the CPU, every result field, the halo bytes and the
+    trace rows: distance-1 on rmat-er and rmat-g at 0.25 (n 16,384: the
+    packed halo word) and thermal2 at 0.25 (n 49,152: (id, colour)
+    pairs), both heuristics and the tail off on rmat-g; distance-2 and
+    bipartite in both strategies; ``color_batch`` in both regimes."""
+    g1 = {name: build_graph(name, 0.25) for name in ("rmat-er", "rmat-g", "thermal2")}
+    d2g, bg = build_graph("rmat-g", 0.05), jacobian_band(4096, band=3)
+    cases = [(f"{name} k={k}", "data_driven", g, k, {})
+             for name, g in g1.items() for k in (2, 3)]
+    cases += [(f"rmat-g k={k} {label}", "data_driven", g1["rmat-g"], k, opts)
+              for k in (2, 3) for label, opts in (
+                  ("id traced", dict(heuristic="id", trace=True)),
+                  ("no tail", dict(tail_serial=None)))]
+    cases += [(f"distance2 {s} k=3", "distance2", d2g, 3, dict(strategy=s, trace=True))
+              for s in ("precomputed", "onthefly")]
+    cases += [(f"bipartite {s} k=2", "bipartite", bg, 2, dict(strategy=s))
+              for s in ("precomputed", "onthefly")]
+    for label, algorithm, g, k, opts in cases:
+        reset_counts()
+        with no_superstep_gathers():
+            a = color(g, algorithm, engine="sharded", devices=[dev_cuda] * k, **opts)
+        k3 = superstep_tile.launches
+        b = color(g, algorithm, engine="sharded", devices=["cpu"] * k, **opts)
+        diff = same_sharded(a, b)
+        if diff or k3 < k:
+            fail(f"sharded slice {label}: card != cpu or K3 not launched ({k3}): {diff}")
+        print(f"sharded slice {label} (n {b.colors.size}): iters {a.iterations}, "
+              f"colors {a.num_colors}, padded {a.padded_work}, halo "
+              f"{a.halo_bytes_per_step} B a step, K3 {k3} K2 "
+              f"{serial_tail_csr.launches}: card == cpu", flush=True)
+    for label, graphs, k, algorithm in (
+            ("B >= ndev", serving_mix(6, 0.5), 2, "fused"),
+            ("B >= ndev distance-2", serving_mix(4, 0.5), 2, "distance2"),
+            ("B < ndev", serving_mix(2, 0.5), 3, "fused")):
+        reset_counts()
+        a = color_batch(graphs, algorithm, engine="sharded", devices=[dev_cuda] * k,
+                        trace=True)
+        k3 = superstep_tile.launches
+        b = color_batch(graphs, algorithm, engine="sharded", devices=["cpu"] * k,
+                        trace=True)
+        diff = same_batch(a, b) + [d for x, y in zip(a, b) for d in same_sharded(x, y)]
+        if diff or k3 == 0:
+            fail(f"sharded batch {label}: card != cpu or K3 not launched: {diff}")
+        print(f"sharded batch {label} {algorithm} k={k}: iters "
+              f"{[r.iterations for r in a]}, algorithms {sorted({r.algorithm for r in a})}, "
+              f"K3 {k3}: card == cpu", flush=True)
+
+
+def sharded_full(label, run, single, valid, K: int, same_work: bool) -> dict:
+    """One sharded path at full size through ``run_full`` (the counted run
+    of ``run()``, then the median of 3 and a profiled run), its
+    ``ragged_superstep`` calls counted: one K3 launch each, ``SHARDS × K``
+    a speculative step; colours and iterations (with ``same_work`` also
+    ``work_items``) equal to the single-device call ``single``; then one
+    traced run, its spans' wall by name."""
+    steps = []
+
+    @contextlib.contextmanager
+    def guard():
+        with no_superstep_gathers(), counted_steps() as calls:
+            yield
+        steps.append(len(calls))
+
+    out = run_full(label, run, (superstep_tile, serial_tail_csr), valid,
+                   guard=guard, what=f"({SHARDS} shards of one card)")
+    r, counts = out["result"], out["counts"]
+    spec = r.iterations - 1 - (counts["serial_tail_csr"] > 0)
+    if not (steps[0] == counts["superstep_tile"] == SHARDS * K * spec) or spec < 1:
+        fail(f"{label}: {counts['superstep_tile']} K3 launches, {steps[0]} class "
+             f"sub-steps for {SHARDS} shards x {K} classes x {spec} steps")
+    if counts["superstep_csr"]:
+        fail(f"{label}: K1 launched on the sharded path")
+    one = single()
+    if not (np.array_equal(one.colors, r.colors) and one.iterations == r.iterations
+            and (one.work_items == r.work_items or not same_work)):
+        fail(f"{label}: colours, iterations or work items differ from the "
+             "single-device call")
+    print(f"  {label}: padded_work {r.padded_work}, halo {r.halo_bytes_per_step} B "
+          f"a step, K3 {counts['superstep_tile']} = {SHARDS} shards x {K} classes x "
+          f"{spec} steps, K2 {counts['serial_tail_csr']}; colours and iterations == "
+          f"the single-device call, work_items {r.work_items} (single-device "
+          f"{one.work_items}) [{card_line()}]", flush=True)
+    traced = run(trace=True)
+    torch.cuda.synchronize()
+    if not np.array_equal(traced.colors, r.colors) or traced.trace.check(traced):
+        fail(f"{label}: the traced run differs or its trace is incoherent")
+    spans: dict = {}
+    for e in traced.trace.spans:
+        spans[e.name] = spans.get(e.name, 0.0) + e.duration * 1e3
+    print(f"  {label} traced: spans (ms) "
+          f"{ {k: round(v, 3) for k, v in spans.items()} }; rows (live, retired, "
+          f"conflicts, max colour, cells, tail, halo B, imbalance) "
+          f"{traced.trace.steps.tolist()}", flush=True)
+    return out
+
+
+def check_sharded(graphs: dict, dev_cuda, lat: dict) -> dict:
+    """Phase 14: the sharded engine card == CPU at small scale, then
+    rmat-er (distance-1 and distance-2 on the fly) and the banded Jacobian
+    (bipartite on the fly) at full size on ``SHARDS`` shards of the card,
+    and K3 over one shard's rows read in place against its plain version
+    at rmat-er's first-step shapes."""
+    totals = {k.__name__: 0 for k in KERNELS}
+    t = time.perf_counter()
+    sharded_slice(dev_cuda)
+    print(f"sharded slice took {time.perf_counter() - t:.1f} s", flush=True)
+    devs = [dev_cuda] * SHARDS
+    g = graphs["rmat-er"]
+    classes, widths = _resolve_classes(g.degrees, (), "auto")
+    t = time.perf_counter()
+    bg = jacobian_band(1 << 20, band=3)
+    print(f"graph jacobian_band(1<<20, band=3) rebuilt in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    runs = [
+        ("sharded rmat-er", lambda **kw: color(g, engine="sharded", devices=devs, **kw),
+         lambda: color(g, device=dev_cuda, mode="fused"),
+         lambda c: is_valid_coloring(g, c), len(classes), True),
+        ("sharded distance2 rmat-er",
+         lambda **kw: color(g, "distance2", engine="sharded", devices=devs, **kw),
+         lambda: color(g, "distance2", device=dev_cuda),
+         lambda c: validate_d2(g, c), 1, False),
+        ("sharded bipartite jacobian_band",
+         lambda **kw: color(bg, "bipartite", engine="sharded", devices=devs, **kw),
+         lambda: color(bg, "bipartite", device=dev_cuda),
+         lambda c: validate_bipartite(bg, c), 1, False),
+    ]
+    for run in runs:
+        out = sharded_full(*run)
+        for k, c in out["counts"].items():
+            totals[k] += c
+        torch.cuda.empty_cache()
+    # the engine's cached plan and stacked shards of rmat-er
+    plan = core_coloring._graph_device_cache(
+        g, f"plan{SHARDS}", None, lambda: PartitionedCSR.from_graph(g, SHARDS))
+    stacked = core_coloring._graph_device_cache(
+        g, f"shards{SHARDS}", None, lambda: plan.stack_shards(g))
+    rs, col, deg = (torch.from_numpy(a[0]).to(dev_cuda) for a in stacked)
+    shard = ShardRows(rs, col, deg, 0, g.n, plan.n_loc, max(g.max_degree, 1))
+    own = [c[c < plan.starts[1]] for c in classes]
+    recs = k3_times(shard, DeviceCSR.from_csr(g, dev_cuda).deg_ext, own, widths,
+                    dev_cuda, lat, plain=True, old_cells=0)
+    print_tile_recs(f"K3 over shard 0 of {SHARDS} (rows read in place, first step)",
+                    recs)
+    return {"launches": totals, "times": {"k3 shard": recs}}
+
+
 def kernels_record(full: dict) -> list:
     """The kernels' JSON record: launches summed over the main paths'
-    counted runs (distance-1, distance-2, the comparison, and phase 12's
-    batched and session paths), times and bounds at their
+    counted runs (distance-1, distance-2, the comparison, phase 12's
+    batched and session paths, phase 13's service and phase 14's sharded
+    runs), times and bounds at their
     shapes on rmat-er (K1: mean per launch over the first superstep's
     classes; K2: the stall tail over all n vertices; K3: mean per launch
     over the padded engine's first-superstep classes, rows read in place;
@@ -2852,6 +3039,7 @@ def kernels_record(full: dict) -> list:
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
+    t_start = time.perf_counter()
     dev_cuda = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     card = card_line()
@@ -2906,8 +3094,14 @@ def main():
     for k, c in service["launches"].items():
         full["launches"][k] += c
     print(f"service took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    sharded = check_sharded(full["graphs"], dev_cuda, lat)
+    for k, c in sharded["launches"].items():
+        full["launches"][k] += c
+    print(f"sharded took {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = kernels_record(full)
+    print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

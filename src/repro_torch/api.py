@@ -7,7 +7,9 @@
 Algorithms self-register with ``@register(name)``; the port registers
 every algorithm ``repro`` has.  ``color_batch`` colours many graphs (the
 batched engine for ``"fused"`` and ``"distance2"``), ``open_session``
-opens a streaming session (``repro_torch.dynamic``).
+opens a streaming session (``repro_torch.dynamic``).  ``engine="sharded",
+devices=[...]`` colours one graph (or a batch) over several shards
+(``repro_torch.core.distributed``).
 
 Robustness knobs, as in ``repro``: ``validate_input=`` runs the ingest
 front door (``repro_torch.ingest.sanitize_csr``) on a ``CSRGraph`` first,
@@ -191,8 +193,9 @@ def color_batch(
     packed into one table and coloured in one loop of launches.  Any other
     name loops ``color`` over the graphs.  Knobs the batched engine cannot
     honor are refused by name.  ``device=`` defaults to ``"cuda"``;
-    ``validate_input=`` and ``ensure_valid=`` act per graph, as in
-    ``color``.
+    ``engine="sharded"`` places the batch over ``devices=``
+    (``core.batch.color_batch_sharded``).  ``validate_input=`` and
+    ``ensure_valid=`` act per graph, as in ``color``.
     """
     graphs = list(graphs)
     o = _normalize(algorithm, options, opts)

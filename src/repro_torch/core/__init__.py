@@ -1,12 +1,11 @@
 """The port's coloring engine: CSR storage, FirstFit, conflict rules, the
-data-driven engines, the paper's baselines (serial, topology-driven, JP,
-multi-hash, three-step), and the host-side oracle and validators.
+data-driven engines (single-device, batched and sharded), the paper's
+baselines (serial, topology-driven, JP, multi-hash, three-step), and the
+host-side oracle and validators.
 
-Re-exports the ported names of ``repro.core.__all__``, the batched engine
-and the streaming sessions among them; the sharded ones (``PartitionedCSR``,
-``balanced_starts``, ``color_sharded``) arrive with ROADMAP A11.  The names
-load on first use (``from repro_torch.core import color_jp``), so importing
-one submodule does not import them all.
+Re-exports ``repro.core.__all__``, in its order.  The names load on first
+use (``from repro_torch.core import color_jp``), so importing one submodule
+does not import them all.
 """
 import importlib
 
@@ -14,19 +13,21 @@ _EXPORTS = {
     "CSRGraph": "csr",
     "DeviceCSR": "csr",
     "DeviceGraph": "csr",
+    "GraphBatch": "batch",
+    "PartitionedCSR": "csr",
     "auto_tile_thresholds": "csr",
     "csr_from_edges": "csr",
     "next_pow2": "csr",
     "ColoringResult": "coloring",
-    "GraphBatch": "batch",
-    "SessionBatch": "batch",
-    "batched_sgr_step": "batch",
-    "batched_ragged_step": "batch",
+    "color_data_driven": "coloring",
+    "color_distributed": "distributed",
+    "color_fused": "coloring",
     "color_batch_fused": "batch",
     "color_batch_sharded": "batch",
+    "SessionBatch": "batch",
     "open_session_batch": "batch",
-    "color_data_driven": "coloring",
-    "color_fused": "coloring",
+    "batched_ragged_step": "batch",
+    "batched_sgr_step": "batch",
     "color_topology": "topo",
     "color_jp": "jp",
     "color_multihash": "jp",

@@ -601,8 +601,67 @@ def open_session_batch(graphs: "Iterable[CSRGraph]", *, options=None,
     return SessionBatch(graphs, options=options, **opts)
 
 
-def color_batch_sharded(graphs, **opts):
-    """Batch placement across devices: waits for the sharded engine."""
-    raise NotImplementedError(
-        "color_batch_sharded (multi-device batch placement) is not ported "
-        "yet (ROADMAP A11)")
+def color_batch_sharded(
+    graphs: "Iterable[CSRGraph]",
+    *,
+    devices=None,
+    heuristic: str = "degree",
+    firstfit: str = "bitset",
+    max_iters: int | None = None,
+    distance2: bool = False,
+    tail_serial="auto",
+    backend: str | None = None,
+    trace=False,
+    device=None,
+) -> list[ColoringResult]:
+    """Place a multi-graph batch across devices; ``repro``'s two regimes,
+    each field for field ``repro``'s at the same device count:
+
+    * ``B >= ndev`` — shard per graph: the width-bucketed sub-batches of
+      ``color_batch_fused``, each padded with empty graphs to a multiple of
+      the device count as ``repro`` pads its batch axis (so ``n_max`` and
+      ``W`` are ``repro``'s).  Graphs share nothing, so placement is a pure
+      performance policy: the port packs each sub-batch whole on one
+      device, the sub-batches in turn on ``devices[0]``, ``devices[1]``,
+      …, where ``repro`` splits one sub-batch's batch axis over its mesh.
+    * ``B < ndev`` — partition within graph: too few graphs to fill the
+      devices, so each runs the sharded engine (the halo exchange) over all
+      of them in turn.
+
+    ``devices=None`` means every visible card (``[cpu]`` under
+    ``device="cpu"``); one device, or no graph, runs ``color_batch_fused``.
+    """
+    from repro_torch.core.distributed import resolve_devices
+
+    devices = resolve_devices(devices, device, backend)
+    ndev = len(devices)
+    graphs = list(graphs)
+    B = len(graphs)
+    opts = dict(heuristic=heuristic, firstfit=firstfit,
+                max_iters=max_iters, tail_serial=tail_serial, trace=trace)
+    if ndev <= 1 or B == 0:
+        return color_batch_fused(graphs, distance2=distance2, backend=backend,
+                                 device=devices[0], **opts)
+    if B < ndev:
+        if distance2:
+            from repro_torch.d2.coloring import color_distance2
+
+            return [color_distance2(g, engine="sharded", devices=devices,
+                                    backend=backend, **opts) for g in graphs]
+        return [_engine.color_data_driven(g, engine="sharded", devices=devices,
+                                          backend=backend, **opts)
+                for g in graphs]
+    by_key: dict[int, list[int]] = {}
+    for i, g in enumerate(graphs):
+        by_key.setdefault(_width_key(g, distance2), []).append(i)
+    results: list = [None] * B
+    for j, idxs in enumerate(by_key.values()):
+        sub = [graphs[i] for i in idxs]
+        sub += [_EMPTY] * ((-len(sub)) % ndev)  # no-op graphs to a device multiple
+        batch = GraphBatch.from_graphs(sub, distance2=distance2,
+                                       device=devices[j % ndev])
+        res = color_batch_fused(batch, distance2=distance2, backend=backend,
+                                **opts)
+        for i, r in zip(idxs, res):
+            results[i] = r
+    return results

@@ -43,8 +43,8 @@ and read with the rest at the end, so a traced step takes no host sync
 beyond the untraced one.  ``trace=False`` runs the untraced code
 unchanged.
 
-Options outside the ported slices raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.
+``engine="sharded"`` (several shards, one controller) is
+``core/distributed.py``.
 """
 from __future__ import annotations
 
@@ -124,6 +124,9 @@ class ColoringResult:
     padded_work: int         # gather cells dispatched: Σ lanes × tile width
     converged: bool
     algorithm: str = "data_driven_sgr"
+    # the sharded engine's bytes of boundary colours a shard receives per
+    # super-step, averaged over the run; 0 on the single-device engines
+    halo_bytes_per_step: float = 0.0
     # ``(width, cells)`` per degree class that dispatched work, plus a final
     # full-width entry for the serial tail; partitions ``padded_work``
     class_cells: tuple = ()
@@ -1035,6 +1038,7 @@ def color_data_driven(
     engine: str = "ragged",
     tiling="auto",
     tail_serial="auto",
+    devices=None,
     backend: str | None = None,
     trace=False,
     device=None,
@@ -1042,20 +1046,28 @@ def color_data_driven(
     """Color ``g`` with the paper's optimized data-driven SGR algorithm.
 
     ``engine`` is ``ragged`` (CSR storage, the default), ``padded`` (the
-    same schedule over the dense table) or ``classic`` (the two-phase
-    super-step); ``mode`` is ``workefficient`` or ``fused``.  ``device``
-    defaults to ``"cuda"``, where the engines launch K1–K5; ``device="cpu"``
-    runs their plain versions.  ``trace`` (``True`` or a ring capacity)
-    attaches a ``RunTrace`` with the phase spans.  Results equal
-    ``repro.color(g, ...)``'s field for field (colors, iterations,
-    work_items, padded_work, class_cells, converged, algorithm, the trace's
-    rows).
+    same schedule over the dense table), ``classic`` (the two-phase
+    super-step) or ``sharded`` (the multi-shard engine of
+    ``core/distributed.py``, one shard per entry of ``devices``: every
+    visible card by default, ``[cpu]`` under ``device="cpu"``; with one
+    device it runs ``ragged`` with ``mode="fused"``, the sharded schedule's
+    accounting, so results never depend on how many devices are present);
+    ``mode`` is ``workefficient`` or ``fused``.  ``device`` defaults to
+    ``"cuda"``, where the engines launch K1–K5; ``device="cpu"`` runs their
+    plain versions.  ``trace`` (``True`` or a ring capacity) attaches a
+    ``RunTrace`` with the phase spans.  Results equal ``repro.color(g,
+    ...)``'s field for field (colors, iterations, work_items, padded_work,
+    class_cells, converged, algorithm, halo_bytes_per_step, the trace's
+    rows), the sharded engine's at the same device count.
     """
-    device = resolve_backend(backend, device)
     if engine == "sharded":
-        raise NotImplementedError(
-            "engine='sharded' is not ported yet (ROADMAP A11)")
-    if engine not in ("ragged", "padded", "classic"):
+        from repro_torch.core.distributed import resolve_devices
+
+        devs = resolve_devices(devices, device, backend)
+        device = devs[0]
+    else:
+        device = resolve_backend(backend, device)
+    if engine not in ("ragged", "padded", "classic", "sharded"):
         raise ValueError(
             f"unknown engine {engine!r}; options: ragged, padded, classic, "
             "sharded")
@@ -1071,12 +1083,29 @@ def color_data_driven(
         return result
     max_iters = max_iters or n + 1
 
-    def run():
+    def run(engine=engine, mode=mode):
         if engine == "classic":
             return _color_classic(g, heuristic, firstfit, coarsen_ff,
                                   coarsen_cr, coarsen_lanes, buckets, mode,
                                   max_iters, reuse_rows, device,
                                   trace_cap=resolve_trace_cap(trace, max_iters))
+        if engine == "sharded":
+            # validated before the one-device fallback, so the options taken
+            # never depend on how many devices are present
+            if coarsen_ff != 1 or coarsen_cr != 1 or coarsen_lanes:
+                raise ValueError(
+                    "engine='sharded' runs the uncoarsened (coarsen=1) "
+                    "schedule; coarsen_ff/coarsen_cr/coarsen_lanes are not "
+                    "supported")
+            if len(devs) > 1:
+                from repro_torch.core.distributed import color_distributed
+
+                return color_distributed(
+                    g, devices=devs, heuristic=heuristic, firstfit=firstfit,
+                    buckets=buckets, tiling=tiling, tail_serial=tail_serial,
+                    max_iters=max_iters, trace=trace)
+            # one device: the sharded schedule is the ragged fused one
+            engine, mode = "ragged", "fused"
         with span("partition_plan"):
             classes, widths = _resolve_classes(g.degrees, buckets, tiling)
         dmax = max(g.max_degree, 1)

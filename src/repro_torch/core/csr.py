@@ -26,7 +26,9 @@ __all__ = [
     "CSRGraph",
     "DeviceCSR",
     "DeviceGraph",
+    "PartitionedCSR",
     "auto_tile_thresholds",
+    "balanced_starts",
     "compose_pairs",
     "csr_from_edges",
     "csr_tile",
@@ -295,6 +297,264 @@ def auto_tile_thresholds(
             lo = t
         t *= 2
     return tuple(out)
+
+
+def balanced_starts(weights: np.ndarray, ndev: int) -> np.ndarray:
+    """Contiguous range boundaries balancing ``weights`` over ``ndev`` parts.
+
+    Returns ``starts`` of shape ``(ndev + 1,)`` with ``starts[0] == 0`` and
+    ``starts[-1] == len(weights)``: part ``d`` owns ``[starts[d],
+    starts[d+1])``.  Cuts sit at the weight-prefix-sum quantiles, so parts
+    carry (near-)equal total weight while staying contiguous in id — the
+    classic 1-D block partition of distributed coloring (Boman–Bozdağ).
+    """
+    weights = np.asarray(weights, dtype=np.int64)
+    n = int(weights.size)
+    ndev = max(int(ndev), 1)
+    cum = np.concatenate([[0], np.cumsum(weights)])
+    targets = cum[-1] * np.arange(1, ndev, dtype=np.float64) / ndev
+    cuts = np.searchsorted(cum, targets, side="left")
+    starts = np.concatenate([[0], cuts, [n]]).astype(np.int64)
+    return np.maximum.accumulate(np.clip(starts, 0, n))
+
+
+@dataclasses.dataclass(frozen=True)
+class PartitionedCSR:
+    """Degree-balanced contiguous partition plan + halo index sets.
+
+    Device ``d`` owns the contiguous vertex range ``[starts[d],
+    starts[d+1])``.  ``interior[d]`` / ``boundary[d]`` split that range by
+    whether the vertex's color is ever read off-device under the conflict
+    relation the plan was built for — 1-hop edges for distance-1
+    (``from_graph``), two-hop reach for distance-2
+    (``from_graph(boundary_mode="two_hop")``), shared-row column conflicts
+    for bipartite partial coloring (``from_bipartite``).  Interior vertices
+    never communicate; ``boundary[d]`` doubles as device ``d``'s halo SEND
+    list and ``recv[d]`` is the remote vertex set whose colors it reads.
+    The engine (``core/distributed.py``) consumes ``starts`` + ``boundary``
+    (its all-gather broadcast makes per-pair recv routing unnecessary), so
+    those are built eagerly at partition time (O(m) host work); ``recv``
+    documents the communication pattern for validation and introspection
+    and is computed lazily on first access (O(ndev·m)) — the property
+    tests assert it against the edge list.
+    """
+
+    n: int
+    starts: np.ndarray            # (ndev+1,) int64 range boundaries
+    interior: tuple               # per-device global ids, colors stay local
+    boundary: tuple               # per-device global ids == halo send lists
+    # zero-arg closure building the recv sets on demand (engine never needs
+    # them); excluded from equality/repr like any derived cache
+    _make_recv: object = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    @property
+    def recv(self) -> tuple:
+        """Per-device remote ids whose colors the device reads (lazy)."""
+        cache = getattr(self, "_recv_cache", None)
+        if cache is None:
+            cache = (self._make_recv() if self._make_recv is not None
+                     else tuple(np.zeros(0, np.int32)
+                                for _ in self.interior))
+            object.__setattr__(self, "_recv_cache", cache)
+        return cache
+
+    @property
+    def ndev(self) -> int:
+        return len(self.interior)
+
+    @property
+    def lens(self) -> np.ndarray:
+        return np.diff(self.starts).astype(np.int64)
+
+    @property
+    def n_loc(self) -> int:
+        """Uniform per-shard slot count (max range length, >= 1)."""
+        return max(int(self.lens.max(initial=0)), 1)
+
+    @property
+    def halo_words(self) -> int:
+        """Total boundary vertices — one halo round's worst-case payload."""
+        return int(sum(b.size for b in self.boundary))
+
+    def owners(self) -> np.ndarray:
+        """(n,) owning-device id per vertex (computed once, read-only)."""
+        cache = getattr(self, "_owners_cache", None)
+        if cache is None:
+            cache = (np.searchsorted(self.starts, np.arange(self.n), side="right")
+                     - 1).astype(np.int32)
+            cache.flags.writeable = False
+            object.__setattr__(self, "_owners_cache", cache)
+        return cache
+
+    def boundary_masks(self) -> np.ndarray:
+        """(ndev, n_loc) bool: is local slot ``i`` of device ``d`` boundary."""
+        out = np.zeros((self.ndev, self.n_loc), dtype=bool)
+        for d, b in enumerate(self.boundary):
+            out[d, b - self.starts[d]] = True
+        return out
+
+    @classmethod
+    def from_graph(
+        cls, g: "CSRGraph", ndev: int, *, boundary_mode: str = "edge",
+        validate_input: str | None = None,
+    ) -> "PartitionedCSR":
+        """Partition ``g`` balancing ``degree + 1`` per contiguous range.
+
+        ``boundary_mode="edge"`` marks a vertex boundary when it has a
+        cross-partition edge (its color is read one hop away);
+        ``"two_hop"`` when its *two-hop* neighborhood crosses (the reader
+        set of distance-2 coloring) — a vertex or any of its neighbors has
+        a cross-partition edge.
+
+        ``validate_input="strict"|"repair"`` runs ``g`` through the
+        ingest front door first: an asymmetric CSR silently breaks the
+        halo-exchange invariant (a boundary vertex the other side doesn't
+        know to send), so sanitize before partitioning.
+        """
+        if validate_input is not None:
+            from repro_torch.ingest import sanitize_csr
+
+            g, _ = sanitize_csr(g, policy=validate_input)
+        n = g.n
+        starts = balanced_starts(g.degrees.astype(np.int64) + 1, ndev)
+        owner = (
+            np.searchsorted(starts, np.arange(n), side="right") - 1
+        ).astype(np.int32)
+        src, dst = g.edges()
+        cross = owner[src] != owner[dst]
+        has_cross = np.zeros(n, dtype=bool)
+        has_cross[src[cross]] = True
+        if boundary_mode == "edge":
+            is_boundary = has_cross
+        elif boundary_mode == "two_hop":
+            nbr_cross = np.zeros(n, dtype=np.int64)
+            np.add.at(nbr_cross, src, has_cross[dst].astype(np.int64))
+            is_boundary = has_cross | (nbr_cross > 0)
+        else:
+            raise ValueError(
+                f"unknown boundary_mode {boundary_mode!r}; options: edge, two_hop"
+            )
+        interior, boundary = [], []
+        for d in range(len(starts) - 1):
+            ids = np.arange(starts[d], starts[d + 1], dtype=np.int32)
+            boundary.append(ids[is_boundary[ids]])
+            interior.append(ids[~is_boundary[ids]])
+
+        def build_recv() -> tuple:
+            recv = []
+            for d in range(len(starts) - 1):
+                mine = owner[src] == d
+                out_edges = dst[mine & cross]
+                if boundary_mode == "two_hop":
+                    # readers two hops away: neighbors of my one-hop reach
+                    lo = g.row_offsets[starts[d]]
+                    hi = g.row_offsets[starts[d + 1]]
+                    reach = np.unique(g.col_indices[lo:hi])
+                    two = np.unique(
+                        _gather_ragged(g.row_offsets, g.col_indices, reach))
+                    out_edges = np.concatenate([out_edges, reach, two])
+                uniq = np.unique(out_edges).astype(np.int32)
+                in_range = (uniq >= starts[d]) & (uniq < starts[d + 1])
+                recv.append(uniq[~in_range])
+            return tuple(recv)
+
+        return cls(n, starts, tuple(interior), tuple(boundary), build_recv)
+
+    @classmethod
+    def from_bipartite(cls, bg, ndev: int) -> "PartitionedCSR":
+        """Partition a ``BipartiteGraph``'s COLUMN side (the colored side).
+
+        Columns conflict when they share a row, so a column is boundary iff
+        one of its rows also holds a column owned by another device.
+        """
+        n = bg.n_cols
+        starts = balanced_starts(bg.col_degrees.astype(np.int64) + 1, ndev)
+        owner = (
+            np.searchsorted(starts, np.arange(n), side="right") - 1
+        ).astype(np.int32)
+        # a row "spans" when its columns touch more than one partition
+        row_src = np.repeat(
+            np.arange(bg.n_rows, dtype=np.int64), bg.row_degrees
+        )
+        col_owner = owner[bg.row_to_col]
+        row_min = np.full(bg.n_rows, np.iinfo(np.int32).max, np.int64)
+        row_max = np.full(bg.n_rows, -1, np.int64)
+        np.minimum.at(row_min, row_src, col_owner)
+        np.maximum.at(row_max, row_src, col_owner)
+        row_spans = (row_max >= 0) & (row_min != row_max)
+        col_src = np.repeat(np.arange(n, dtype=np.int64), bg.col_degrees)
+        bad = np.zeros(n, dtype=np.int64)
+        np.add.at(bad, col_src, row_spans[bg.col_to_row].astype(np.int64))
+        is_boundary = bad > 0
+        interior, boundary = [], []
+        for d in range(len(starts) - 1):
+            ids = np.arange(starts[d], starts[d + 1], dtype=np.int32)
+            boundary.append(ids[is_boundary[ids]])
+            interior.append(ids[~is_boundary[ids]])
+
+        def build_recv() -> tuple:
+            recv = []
+            for d in range(len(starts) - 1):
+                lo = bg.col_offsets[starts[d]]
+                hi = bg.col_offsets[starts[d + 1]]
+                my_rows = np.unique(bg.col_to_row[lo:hi])
+                reach = np.unique(
+                    _gather_ragged(bg.row_offsets, bg.row_to_col, my_rows)
+                )
+                in_range = (reach >= starts[d]) & (reach < starts[d + 1])
+                recv.append(reach[~in_range].astype(np.int32))
+            return tuple(recv)
+
+        return cls(n, starts, tuple(interior), tuple(boundary), build_recv)
+
+    # -- stacked per-shard device layouts (consumed by core/distributed) -----
+    def stack_shards(self, g: "CSRGraph") -> tuple[np.ndarray, ...]:
+        """Per-shard CSR arrays stacked on a leading device axis.
+
+        Returns ``(row_starts (ndev, L+1), col_padded (ndev, Mcap), deg
+        (ndev, L+1))`` — the ``DeviceCSR`` layout of each shard's row range,
+        with GLOBAL column ids (gathers read the globally-indexed color
+        view) and the global sentinel ``n`` in every padding slot.  ``Mcap``
+        includes ``max_degree`` slack so a full-width dynamic slice starting
+        at the last local row never reads out of bounds.
+        """
+        assert g.n == self.n, "plan was built for a different graph"
+        L = self.n_loc
+        wmax = max(g.max_degree, 1)
+        m_loc = [
+            int(g.row_offsets[self.starts[d + 1]] - g.row_offsets[self.starts[d]])
+            for d in range(self.ndev)
+        ]
+        m_cap = max(max(m_loc), 1) + wmax
+        row_starts = np.zeros((self.ndev, L + 1), np.int32)
+        col = np.full((self.ndev, m_cap), self.n, np.int32)
+        deg = np.zeros((self.ndev, L + 1), np.int32)
+        for d in range(self.ndev):
+            s, e = int(self.starts[d]), int(self.starts[d + 1])
+            ln = e - s
+            ro = (g.row_offsets[s : e + 1] - g.row_offsets[s]).astype(np.int32)
+            row_starts[d, : ln + 1] = ro
+            row_starts[d, ln + 1 :] = ro[-1] if ln else 0
+            col[d, : m_loc[d]] = g.col_indices[
+                g.row_offsets[s] : g.row_offsets[e]
+            ]
+            deg[d, :ln] = g.degrees[s:e]
+        return row_starts, col, deg
+
+    def stack_rows(self, rows: np.ndarray, fill: int) -> np.ndarray:
+        """Slice a dense per-vertex ``(n, W)`` table into ``(ndev, L, W)``.
+
+        Shard ``d`` gets its own row range; slots past the range length are
+        filled with ``fill`` (the hop target's sentinel) so padding lanes
+        stay inert — used to shard the first hop of ``TwoHopRows``.
+        """
+        L = self.n_loc
+        out = np.full((self.ndev, L, rows.shape[1]), fill, rows.dtype)
+        for d in range(self.ndev):
+            s, e = int(self.starts[d]), int(self.starts[d + 1])
+            out[d, : e - s] = rows[s:e]
+        return out
 
 
 class DeviceCSR:

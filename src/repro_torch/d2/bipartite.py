@@ -22,10 +22,15 @@ import numpy as np
 import torch
 
 from repro_torch.api import register
-from repro_torch.core.coloring import ColoringResult, traced_run
+from repro_torch.core.coloring import (
+    ColoringResult,
+    _graph_device_cache,
+    traced_run,
+)
 from repro_torch.core.csr import (
     CSRGraph,
     DeviceCSR,
+    PartitionedCSR,
     compose_pairs,
     csr_from_edges,
     padded_ragged,
@@ -33,13 +38,14 @@ from repro_torch.core.csr import (
 from repro_torch.d2.coloring import (
     DEFAULT_D2_BUDGET,
     TwoHopRows,
-    check_d2_engine,
+    _stacked_plan,
     degrees_ext,
+    resolve_d2_engine,
     resolve_strategy,
     run_d2_engine,
+    run_sharded_d2_engine,
 )
 from repro_torch.errors import NonConvergenceError
-from repro_torch.kernels.dispatch import resolve_backend
 from repro_torch.obs.spans import span
 from repro_torch.obs.trace import empty_trace
 
@@ -179,12 +185,23 @@ def color_bipartite(
     precomputed strategy colors the column-conflict graph's CSR (K1, K2 on
     the card), the on-the-fly strategy composes the cols→rows→cols gathers
     (K3, K2).  ``trace`` attaches a ``RunTrace`` with the phase spans.
-    Results equal ``repro.d2.color_bipartite``'s field for field;
-    ``engine="sharded"`` raises (ROADMAP A11).
+    Results equal ``repro.d2.color_bipartite``'s field for field.
+    ``engine="sharded"`` distributes the column side over one shard per
+    entry of ``devices`` along a ``PartitionedCSR.from_bipartite`` plan;
+    with one device it runs ``ragged`` with ``mode="fused"``.
     """
-    device = resolve_backend(backend, device)
-    check_d2_engine(engine)
+    device, devs = resolve_d2_engine(engine, coarsen, devices, device, backend)
     nc = bg.n_cols
+    if devs is not None:
+        if len(devs) > 1 and nc > 0:
+            return _color_bipartite_sharded(
+                bg, devs, heuristic=heuristic, firstfit=firstfit,
+                strategy=strategy, memory_budget=memory_budget,
+                tiling=tiling, tail_serial=tail_serial, max_iters=max_iters,
+                trace=trace)
+        # one device: the ragged fused realization, so colours and
+        # accounting do not depend on the device count
+        mode = "fused"
     if nc == 0:
         result = ColoringResult(np.zeros(0, np.int32), 0, 0, 0, True,
                                 algorithm="bipartite_partial_sgr")
@@ -215,6 +232,63 @@ def color_bipartite(
             tail_serial=tail_serial, max_iters=max_iters,
             algorithm="bipartite_partial_sgr",
             deg_bound=int(bg.col_degrees.max(initial=0)), trace=trace,
+        )
+
+    return traced_run(run, trace)
+
+
+def _color_bipartite_sharded(
+    bg: BipartiteGraph, devices, *, heuristic, firstfit, strategy,
+    memory_budget, tiling, tail_serial, max_iters, trace=False,
+) -> ColoringResult:
+    """The multi-shard realization of ``color_bipartite``."""
+    nc = bg.n_cols
+    ndev = len(devices)
+    max_iters = max_iters or nc + 1
+    strategy = _resolve_bipartite_strategy(bg, strategy, memory_budget)
+    deg_bound = int(bg.col_degrees.max(initial=0))
+
+    def run():
+        deg_ext_np = np.concatenate(
+            [bg.col_degrees, np.zeros(1, np.int32)]).astype(np.int32)
+        if strategy == "precomputed":
+            with span("csr_build", engine="bipartite_precomputed"):
+                cg = bg.column_conflict_graph()
+            with span("partition_plan", ndev=ndev):
+                plan = PartitionedCSR.from_graph(cg, ndev)
+                prov_np = plan.stack_shards(cg)
+            return run_sharded_d2_engine(
+                n=nc, devices=devices, plan=plan, provider_kind="csr",
+                prov_np=prov_np, deg_ext_np=deg_ext_np,
+                degrees_for_tiling=cg.degrees, tiling=tiling,
+                heuristic=heuristic, kind=firstfit, tail_serial=tail_serial,
+                max_iters=max_iters,
+                algorithm=f"bipartite_partial_sgr_sharded_{ndev}dev",
+                tail_provider=DeviceCSR.from_csr(cg, devices[0]),
+                deg_bound=deg_bound, trace=trace,
+            )
+        with span("csr_build", engine="bipartite_onthefly"):
+            cols2rows, rows2cols = _graph_device_cache(bg, "halves", None,
+                                                       bg.padded_halves)
+        with span("partition_plan", ndev=ndev):
+            # built once per shard count, where repro rebuilds it every call
+            plan, rows_np = _graph_device_cache(
+                bg, f"plan{ndev}", None,
+                lambda: _stacked_plan(PartitionedCSR.from_bipartite(bg, ndev),
+                                      cols2rows, bg.n_rows))
+        full_width = cols2rows.shape[1] * rows2cols.shape[1]
+        tail_provider = TwoHopRows(torch.from_numpy(cols2rows).to(devices[0]),
+                                   torch.from_numpy(rows2cols).to(devices[0]),
+                                   include_first_hop=False)
+        return run_sharded_d2_engine(
+            n=nc, devices=devices, plan=plan, provider_kind="twohop",
+            prov_np=(rows_np, rows2cols),
+            deg_ext_np=deg_ext_np, degrees_for_tiling=None, tiling=tiling,
+            heuristic=heuristic, kind=firstfit, tail_serial=tail_serial,
+            max_iters=max_iters,
+            algorithm=f"bipartite_partial_sgr_sharded_{ndev}dev",
+            tail_provider=tail_provider, include_first_hop=False,
+            deg_bound=deg_bound, full_width=full_width, trace=trace,
         )
 
     return traced_run(run, trace)

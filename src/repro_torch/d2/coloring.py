@@ -31,6 +31,7 @@ from repro_torch.core.coloring import (
     ColoringResult,
     _chunk_bounds,
     _dense_adjacency,
+    _graph_device_cache,
     _resolve_classes,
     compact,
     cr_flags,
@@ -40,7 +41,7 @@ from repro_torch.core.coloring import (
     run_ragged_engine,
     traced_run,
 )
-from repro_torch.core.csr import CSRGraph, DeviceCSR
+from repro_torch.core.csr import CSRGraph, DeviceCSR, PartitionedCSR
 from repro_torch.ingest import packed_gather_ok
 from repro_torch.kernels.cuda import TwoHopLanes
 from repro_torch.kernels.d2.kernel import d2_firstfit
@@ -64,9 +65,10 @@ class TwoHopRows:
     part of the neighbourhood (``include_first_hop=True``); for bipartite
     partial coloring ``adj_a`` is cols→rows, ``adj_b`` rows→cols, and only
     hop-2 (column-side) ids carry colors.  Rows may hold duplicate and self
-    lanes.  ``start`` and ``n_colored`` serve a shard's slice of ``adj_a``
-    (worklist ids stay global, ``id - start`` picks the local row), as in
-    ``repro``; the sharded engine (ROADMAP A11) is not ported yet.
+    lanes.  ``start`` and ``n_colored`` serve a ``PartitionedCSR`` shard's
+    slice of ``adj_a`` (worklist ids stay global, ``id - start`` picks the
+    local row, ``adj_b`` is the whole second hop), so a shard's composed
+    rows are the unsharded ones: the sharded engine's provider.
 
     On the card K3 reads each hop's rows up to their degrees, read off the
     tables once here (a row's lanes up to its last non-sentinel one:
@@ -196,6 +198,22 @@ def d2_sgr_step(
 # engine plumbing (shared with bipartite.py)
 # --------------------------------------------------------------------------
 
+def _d2_classes(n: int, degrees_for_tiling, tiling, full_width: int):
+    """``(classes, tile_widths, acc_widths, tail_width)`` of a D2 run:
+    degree-tiled classes over ``degrees_for_tiling`` (the gathered side's
+    degrees, e.g. G²'s), or one class at the composed rows' ``full_width``
+    when it is None."""
+    if degrees_for_tiling is None:
+        return ([np.arange(n, dtype=np.int32)], [None], [int(full_width)],
+                int(full_width))
+    classes, tile_widths = _resolve_classes(degrees_for_tiling, (), tiling)
+    acc_widths = tile_widths
+    tail_width = max(int(np.asarray(degrees_for_tiling).max(initial=0)), 1)
+    if len(classes) == 1:
+        tile_widths = [None]  # provider serves its natural full width
+    return classes, tile_widths, acc_widths, tail_width
+
+
 def run_d2_engine(
     *, n, provider, deg_ext, tiling, degrees_for_tiling, mode, heuristic,
     kind, coarsen, tail_serial, max_iters, algorithm, deg_bound: int = 2**15,
@@ -208,17 +226,9 @@ def run_d2_engine(
     the degree-tiled dispatch for a ``DeviceCSR`` provider; composed
     providers gather their full two-hop width and pass ``None``.
     """
-    if degrees_for_tiling is not None:
-        classes, tile_widths = _resolve_classes(degrees_for_tiling, (), tiling)
-        acc_widths = tile_widths
-        tail_width = max(int(np.asarray(degrees_for_tiling).max(initial=0)), 1)
-        if len(classes) == 1:
-            tile_widths = [None]  # provider serves its natural full width
-    else:
-        classes = [np.arange(n, dtype=np.int32)]
-        tile_widths = [None]
-        acc_widths = [int(provider.width)]
-        tail_width = int(provider.width)
+    # a DeviceCSR provider has no width: it is tiled by degrees_for_tiling
+    classes, tile_widths, acc_widths, tail_width = _d2_classes(
+        n, degrees_for_tiling, tiling, getattr(provider, "width", None))
     tail_enabled, thr = resolve_tail_threshold(tail_serial, n)
     return run_ragged_engine(
         n=n, provider=provider, deg_ext=deg_ext, classes=classes,
@@ -252,14 +262,55 @@ def resolve_d2_strategy(g: CSRGraph, strategy: str, budget: int) -> str:
                             budget)
 
 
-def check_d2_engine(engine: str) -> None:
-    """``color_distance2`` and ``color_bipartite`` run the ragged engine;
-    the sharded one is not ported."""
+def resolve_d2_engine(engine: str, coarsen: int, devices, device, backend):
+    """``(device, devs)`` for ``color_distance2`` and ``color_bipartite``:
+    ``devs`` is the shard devices under ``engine="sharded"`` (validated
+    before any one-device fallback, so the options taken never depend on
+    how many devices are present), else None."""
     if engine == "sharded":
-        raise NotImplementedError(
-            "engine='sharded' is not ported yet (ROADMAP A11)")
+        from repro_torch.core.distributed import resolve_devices
+
+        if coarsen != 1:
+            raise ValueError(
+                "engine='sharded' runs the unchunked (coarsen=1) schedule")
+        devs = resolve_devices(devices, device, backend)
+        return devs[0], devs
     if engine != "ragged":
-        raise ValueError(f"unknown engine {engine!r}; options: ragged, sharded")
+        raise ValueError(
+            f"unknown engine {engine!r}; options: ragged, sharded")
+    return resolve_backend(backend, device), None
+
+
+def run_sharded_d2_engine(
+    *, n, devices, plan, provider_kind, prov_np, deg_ext_np,
+    degrees_for_tiling, tiling, heuristic, kind, tail_serial, max_iters,
+    algorithm, tail_provider, include_first_hop=True, deg_bound: int = 2**15,
+    full_width: int | None = None, trace=False,
+) -> ColoringResult:
+    """Drive the sharded engine over a distance-2 partition plan.
+
+    The sharded sibling of ``run_d2_engine`` (the same class and width
+    resolution, the same pack gate), shared by distance-2 and bipartite:
+    ``provider_kind`` is ``"csr"`` for the precomputed strategies (shards
+    of G² or of the conflict graph, K3 over ``ShardRows`` on the card) and
+    ``"twohop"`` for composition on the fly (``TwoHopRows`` over the plan's
+    first-hop slices, K3 over ``TwoHopLanes`` with ``start``).
+    """
+    from repro_torch.core.distributed import run_sharded_engine
+
+    classes, tile_widths, acc_widths, tail_width = _d2_classes(
+        n, degrees_for_tiling, tiling, full_width)
+    tail_enabled, thr = resolve_tail_threshold(tail_serial, n)
+    return run_sharded_engine(
+        plan=plan, devices=devices, provider_kind=provider_kind,
+        prov_np=prov_np, deg_ext_np=deg_ext_np, classes=classes,
+        tile_widths=tile_widths, acc_widths=acc_widths,
+        tail_width=tail_width, tail_provider=tail_provider,
+        heuristic=heuristic, kind=kind, tail_enabled=tail_enabled,
+        tail_threshold=thr, max_iters=max_iters, algorithm=algorithm,
+        pack_degrees=packed_gather_ok(max(tail_width, deg_bound)),
+        include_first_hop=include_first_hop, trace=trace,
+    )
 
 
 def degrees_ext(degrees: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -294,13 +345,27 @@ def color_distance2(
     super-step.  ``coarsen`` chunks the worklist.  ``device`` defaults to
     ``"cuda"``; ``device="cpu"`` runs the kernels' plain versions.
     ``trace`` attaches a ``RunTrace`` with the phase spans.  Results equal
-    ``repro.d2.color_distance2``'s field for field.  ``devices`` is accepted
-    for ``repro``'s signature and only matters to the sharded engine, which
-    raises (ROADMAP A11).
+    ``repro.d2.color_distance2``'s field for field.
+
+    ``engine="sharded"`` runs the same schedule over one shard per entry of
+    ``devices`` (``core/distributed.py``): the precomputed strategy shards
+    G²'s CSR along a ``PartitionedCSR`` plan, the on-the-fly strategy runs
+    ``TwoHopRows`` over the plan's first-hop slices (two-hop reach decides
+    the halo sets).  With one device it runs ``ragged`` with
+    ``mode="fused"``.
     """
-    device = resolve_backend(backend, device)
-    check_d2_engine(engine)
+    device, devs = resolve_d2_engine(engine, coarsen, devices, device, backend)
     n = g.n
+    if devs is not None:
+        if len(devs) > 1 and n > 0:
+            return _color_distance2_sharded(
+                g, devs, heuristic=heuristic, firstfit=firstfit,
+                strategy=strategy, memory_budget=memory_budget,
+                tiling=tiling, tail_serial=tail_serial, max_iters=max_iters,
+                trace=trace)
+        # one device: the ragged fused realization, so colours and
+        # accounting do not depend on the device count
+        mode = "fused"
     if n == 0:
         result = ColoringResult(np.zeros(0, np.int32), 0, 0, 0, True,
                                 algorithm="distance2_sgr")
@@ -327,6 +392,67 @@ def color_distance2(
             heuristic=heuristic, kind=firstfit, coarsen=coarsen,
             tail_serial=tail_serial, max_iters=max_iters,
             algorithm="distance2_sgr", deg_bound=g.max_degree, trace=trace,
+        )
+
+    return traced_run(run, trace)
+
+
+def _stacked_plan(plan: PartitionedCSR, first_hop: np.ndarray, fill: int):
+    """``(plan, its shards' slices of the first hop)``."""
+    return plan, plan.stack_rows(first_hop, fill=fill)
+
+
+def _color_distance2_sharded(
+    g: CSRGraph, devices, *, heuristic, firstfit, strategy, memory_budget,
+    tiling, tail_serial, max_iters, trace=False,
+) -> ColoringResult:
+    """The multi-shard realization of ``color_distance2``."""
+    n = g.n
+    ndev = len(devices)
+    max_iters = max_iters or n + 1
+    strategy = resolve_d2_strategy(g, strategy, memory_budget)
+
+    def run():
+        deg_ext_np = np.concatenate(
+            [g.degrees, np.zeros(1, np.int32)]).astype(np.int32)
+        if strategy == "precomputed":
+            # G² reduces distance-2 to distance-1, so the plan partitions G²
+            # directly: its 1-hop boundary is the two-hop reader set of g
+            with span("csr_build", engine="d2_precomputed"):
+                g2 = g.square()
+            with span("partition_plan", ndev=ndev):
+                plan = PartitionedCSR.from_graph(g2, ndev)
+                prov_np = plan.stack_shards(g2)
+            return run_sharded_d2_engine(
+                n=n, devices=devices, plan=plan, provider_kind="csr",
+                prov_np=prov_np, deg_ext_np=deg_ext_np,
+                degrees_for_tiling=g2.degrees, tiling=tiling,
+                heuristic=heuristic, kind=firstfit, tail_serial=tail_serial,
+                max_iters=max_iters,
+                algorithm=f"distance2_sgr_sharded_{ndev}dev",
+                tail_provider=DeviceCSR.from_csr(g2, devices[0]),
+                deg_bound=g.max_degree, trace=trace,
+            )
+        with span("csr_build", engine="d2_onthefly"):
+            adj_np = _graph_device_cache(g, "dense_np", None, g.padded_adjacency)
+            adj = _dense_adjacency(g, devices[0])
+        with span("partition_plan", ndev=ndev):
+            # the plan is a function of the frozen graph: built once per
+            # shard count, where repro rebuilds it every call
+            plan, rows_np = _graph_device_cache(
+                g, f"d2plan{ndev}", None,
+                lambda: _stacked_plan(PartitionedCSR.from_graph(
+                    g, ndev, boundary_mode="two_hop"), adj_np, n))
+        full_width = adj_np.shape[1] * adj_np.shape[1] + adj_np.shape[1]
+        return run_sharded_d2_engine(
+            n=n, devices=devices, plan=plan, provider_kind="twohop",
+            prov_np=(rows_np, adj_np),
+            deg_ext_np=deg_ext_np, degrees_for_tiling=None, tiling=tiling,
+            heuristic=heuristic, kind=firstfit, tail_serial=tail_serial,
+            max_iters=max_iters, algorithm=f"distance2_sgr_sharded_{ndev}dev",
+            tail_provider=TwoHopRows(adj, adj, include_first_hop=True),
+            include_first_hop=True, deg_bound=g.max_degree,
+            full_width=full_width, trace=trace,
         )
 
     return traced_run(run, trace)

@@ -22,8 +22,7 @@ Injectors
     Pure function that flips a deterministic subset of packed
     ``id << 16 | color`` halo words into garbage (negative words,
     out-of-range ids, corrupt colors).  Models a torn halo exchange.
-    Its detector, ``check_halo_words``, arrives with the sharded engine
-    (ROADMAP A11).
+    Detector: ``repro_torch.ingest.check_halo_words``.
 
 ``truncate_journal``
     Tears the tail of a durable session's write-ahead journal — either

@@ -17,8 +17,10 @@ or, through the API:
     color(g, validate_input="repair")   # fix + record on result.degradations
 
 Host numpy, a copy of ``repro.ingest``: the same input gives the same graph
-and the same report.  The halo words of the sharded engine wait for ROADMAP
-A11.
+and the same report.  ``pack_halo_words`` / ``unpack_halo_words`` are the
+host mirror of the sharded engine's ``id << 16 | color`` halo word
+(``core/distributed.py``), and ``check_halo_words`` finds the words that
+cannot be legitimate (the detector of ``faultlab.poison_halo_words``).
 """
 from __future__ import annotations
 
@@ -34,6 +36,9 @@ __all__ = [
     "sanitize_csr",
     "packed_halo_ok",
     "packed_gather_ok",
+    "pack_halo_words",
+    "unpack_halo_words",
+    "check_halo_words",
     "PACKED_HALO_MAX_N",
     "PACKED_GATHER_MAX_DEG",
     "INDEX_MAX",
@@ -69,6 +74,34 @@ def packed_gather_ok(dmax: int, color_bound: int | None = None) -> bool:
     if color_bound is not None and not 0 <= int(color_bound) < PACKED_GATHER_MAX_DEG:
         return False
     return True
+
+
+def pack_halo_words(ids: np.ndarray, colors: np.ndarray) -> np.ndarray:
+    """Host mirror of the halo packing: ``id << 16 | color`` (int32)."""
+    ids = np.asarray(ids, dtype=np.int64)
+    colors = np.asarray(colors, dtype=np.int64)
+    return ((ids << 16) | colors).astype(np.int32)
+
+
+def unpack_halo_words(words: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Inverse of ``pack_halo_words``: ``(ids, colors)`` int32 arrays."""
+    words = np.asarray(words, dtype=np.int32)
+    return (words >> 16).astype(np.int32), (words & 0xFFFF).astype(np.int32)
+
+
+def check_halo_words(words: np.ndarray, n: int) -> np.ndarray:
+    """Indices of halo words that cannot be legitimate ``(id, color)`` pairs.
+
+    A well-formed word unpacks to ``0 <= id <= n`` (``n`` is the inert
+    sentinel the exchange pads with) and ``0 <= color <= n`` (greedy colors
+    never exceed the vertex count), and the sentinel carries color 0.
+    Anything else (a negative word, whose sign bit an id >= 2^15 set, an
+    out-of-range id, an impossible color) is poison.
+    """
+    ids, colors = unpack_halo_words(words)
+    words = np.asarray(words, dtype=np.int32)
+    bad = (words < 0) | (ids > n) | (colors > n) | ((ids == n) & (colors != 0))
+    return np.nonzero(bad)[0].astype(np.int64)
 
 
 # --------------------------------------------------------------------------
@@ -143,9 +176,8 @@ def sanitize_csr(graph_or_offsets, col_indices=None, *,
 
     Packed-word capacity *hazards* are recorded on ``report.hazards`` in
     both policies; they are legal inputs (the engines fall back to unpacked
-    arithmetic), not defects.  ``packed_halo_ok`` is ``repro``'s halo-word
-    budget, ``n < 2^15``; the sharded engine that ships the word is not
-    ported (ROADMAP A11).
+    arithmetic), not defects.  ``packed_halo_ok`` is the halo-word budget,
+    ``n < 2^15``: past it the sharded engine ships ``(id, colour)`` pairs.
     """
     from repro_torch.core.csr import CSRGraph, csr_from_edges
 

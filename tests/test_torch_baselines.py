@@ -366,8 +366,7 @@ def test_core_reexports_the_ported_names():
     import repro.core
     import repro_torch.core
 
-    waiting = {"PartitionedCSR", "color_distributed"}  # ROADMAP A11
-    assert set(repro_torch.core.__all__) == set(repro.core.__all__) - waiting
+    assert repro_torch.core.__all__ == repro.core.__all__  # in its order
     for name in repro_torch.core.__all__:
         assert getattr(repro_torch.core, name) is not None
     assert repro_torch.core.color_jp is color_jp

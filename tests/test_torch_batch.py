@@ -347,10 +347,13 @@ def test_color_batch_refuses_what_it_cannot_honor():
         repro_torch.color_batch(g, "fused", tiling=(4, 32), device="cpu")
     with pytest.raises(ValueError, match="devices="):
         repro_torch.color_batch(g, devices=[0], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        repro_torch.color_batch(g, engine="sharded", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        tbatch.color_batch_sharded(g)
+    with pytest.raises(ValueError, match="mixes the CPU and CUDA"):
+        repro_torch.color_batch(g, engine="sharded", devices=["cpu", "cuda"])
+    with pytest.raises(ValueError, match="options"):
+        tbatch.color_batch_sharded(g, devices=["cpu"] * 2, backend="pallas")
+    # engine="sharded" is ported (ROADMAP A11): one device is the batched engine
+    _assert_all_same(repro_torch.color_batch(g, device="cpu"),
+                     repro_torch.color_batch(g, engine="sharded", device="cpu"))
     with pytest.raises(ValueError, match="unknown batch engine"):
         repro_torch.color_batch(g, engine="ragged", device="cpu")
 

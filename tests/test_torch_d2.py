@@ -441,12 +441,17 @@ def test_distance2_surface():
     assert repro_torch.get_algorithm("bipartite") is T.color_bipartite
     g = _tg(_graph("er"))
     for opts, err, match in (
-            (dict(engine="sharded"), NotImplementedError, "ROADMAP A11"),
+            (dict(engine="sharded", coarsen=2), ValueError, "coarsen=1"),
             (dict(engine="padded"), ValueError, "unknown engine"),
             (dict(backend="cuda"), ValueError, "needs a CUDA device"),
             (dict(mode="eager"), ValueError, "unknown mode")):
         with pytest.raises(err, match=match):
             repro_torch.color(g, "distance2", device="cpu", **opts)
+    # engine="sharded" is ported (ROADMAP A11): one device runs the fused call
+    sh = repro_torch.color(g, "distance2", device="cpu", engine="sharded")
+    fused = repro_torch.color(g, "distance2", device="cpu", mode="fused")
+    np.testing.assert_array_equal(sh.colors, fused.colors)
+    assert (sh.padded_work, sh.work_items) == (fused.padded_work, fused.work_items)
     for backend in (None, "auto"):
         assert repro_torch.color(g, "distance2", device="cpu",
                                  backend=backend).converged

@@ -4,9 +4,9 @@
 Mirrors ``tests/test_faultlab.py``: every detector fires and every
 recovery path heals, with the port's results equal to ``repro``'s (colours,
 fields, ladder ``degradations``, journal replay after ``truncate_journal``).
-The two halo-word tests wait for ``check_halo_words`` (ROADMAP A11); the
-injector itself is held against ``repro``'s here.  Durable directories
-cross between the packages in both directions.
+The two halo-word tests run the injector against the port's detector
+``check_halo_words``; the injector itself is held against ``repro``'s
+here.  Durable directories cross between the packages in both directions.
 """
 import json
 import shutil
@@ -27,6 +27,8 @@ from repro_torch.core import CSRGraph, is_valid_coloring
 from repro_torch.core.guarantee import residual_vertices, serial_repair
 from repro_torch.dynamic.journal import JOURNAL_NAME, SessionJournal
 from repro_torch.dynamic.session import ColoringSession
+from repro_torch.ingest import check_halo_words
+from repro_torch.ingest import pack_halo_words as tpack_halo_words
 
 FIELDS = ("iterations", "work_items", "padded_work", "class_cells", "converged",
           "algorithm", "degradations")
@@ -113,8 +115,31 @@ def test_serial_repair_survives_garbage_colors(graph):
 
 
 # --------------------------------------------------------------------------
-# fault 2: poisoned packed halo words (the detector waits for A11)
+# fault 2: poisoned packed halo words
 # --------------------------------------------------------------------------
+
+def test_poisoned_halo_words_detected():
+    n = 200
+    rng = np.random.default_rng(4)
+    words = tpack_halo_words(rng.integers(0, n, 64), rng.integers(1, 12, 64))
+    assert check_halo_words(words, n).size == 0      # clean words pass
+    poisoned = faultlab.poison_halo_words(words, n, fraction=0.25, seed=9)
+    bad = check_halo_words(poisoned, n)
+    changed = np.nonzero(poisoned != words)[0]
+    assert changed.size > 0
+    assert set(changed) <= set(bad.tolist())         # every poison detected
+
+
+def test_poison_covers_all_flavors():
+    words = tpack_halo_words(np.zeros(30, np.int64), np.ones(30, np.int64))
+    poisoned = faultlab.poison_halo_words(words, 30, fraction=1.0, seed=0)
+    assert (poisoned < 0).any()                      # negative word
+    ids = (poisoned.astype(np.int64) >> 16)
+    assert (ids > 30).any()                          # out-of-range id
+    cols = poisoned & 0xFFFF
+    assert ((poisoned >= 0) & (cols > 30)).any()     # impossible color
+    assert set(check_halo_words(poisoned, 30).tolist()) == set(range(30))
+
 
 @pytest.mark.parametrize("fraction,seed", [(0.25, 9), (1.0, 0)])
 def test_poison_halo_words_matches_repro(fraction, seed):

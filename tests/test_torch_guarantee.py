@@ -5,8 +5,9 @@ budgets, API wiring) and the ladder tests of ``tests/test_faultlab.py``
 and ``tests/test_d2.py``: ``sanitize_csr`` gives the same graph and the
 same report as ``repro``'s on every defect, under both policies, and
 ``ensure_valid=True`` takes the same rungs with the same outcomes on
-distance-1, distance-2 and bipartite runs.  The batched, partitioned and
-streaming front doors wait for ROADMAP A7, A11 and A9.
+distance-1, distance-2 and bipartite runs.  The batched and partitioned
+front doors (``GraphBatch``, ``PartitionedCSR``) refuse and repair as
+``repro``'s do.
 """
 import dataclasses
 
@@ -235,6 +236,27 @@ def test_validate_input_repair_on_every_algorithm(algorithm):
     got = repro_torch.color(bad, algorithm, validate_input="repair", device="cpu")
     np.testing.assert_array_equal(want.colors, got.colors)
     assert want.degradations == got.degradations != ()
+
+
+def test_batch_and_partition_validate_input():
+    from repro.core.batch import GraphBatch as RBatch
+    from repro.core.csr import PartitionedCSR as RPlan
+
+    from repro_torch.core import GraphBatch, PartitionedCSR
+
+    rbad, bad = _bad_pair()
+    with pytest.raises(IngestError):
+        GraphBatch.from_graphs([bad], validate_input="strict", device="cpu")
+    batch = GraphBatch.from_graphs([bad], validate_input="repair", device="cpu")
+    assert batch.B == RBatch.from_graphs([rbad], validate_input="repair").B == 1
+    with pytest.raises(IngestError):
+        PartitionedCSR.from_graph(bad, 2, validate_input="strict")
+    want = RPlan.from_graph(rbad, 2, validate_input="repair")
+    got = PartitionedCSR.from_graph(bad, 2, validate_input="repair")
+    assert got.n == want.n == 3
+    np.testing.assert_array_equal(want.starts, got.starts)
+    for a, b in zip(want.boundary + want.recv, got.boundary + got.recv):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_color_validate_input_rejects_non_csr():

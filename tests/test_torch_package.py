@@ -19,7 +19,13 @@ import torch
 import repro_torch
 import repro_torch.core.coloring as core_coloring
 from repro_torch.core.coloring import order_tail, run_ragged_engine
-from repro_torch.core.csr import CSRGraph, DeviceCSR, csr_from_edges
+from repro_torch.core.csr import (
+    CSRGraph,
+    DeviceCSR,
+    PartitionedCSR,
+    csr_from_edges,
+)
+from repro_torch.core.distributed import ShardRows
 from repro_torch.core.validate import is_valid_coloring
 from repro_torch.d2 import (
     compress_jacobian_pattern,
@@ -36,6 +42,7 @@ from repro_torch.graphs import (
     jacobian_band,
     jacobian_tall_skinny,
     power_law,
+    road,
 )
 from repro_torch.kernels.conflict.kernel import (
     conflict_rows,
@@ -247,8 +254,8 @@ def test_color_without_device_raises_without_a_card():
 
 
 # options that raised NotImplementedError naming their ROADMAP item; A5
-# (the baselines), A6 (trace=), A10 (ingest, the ladder) and A9 (the
-# dynamic algorithm) are ported, so only A11 still raises
+# (the baselines), A6 (trace=), A10 (ingest, the ladder), A9 (the dynamic
+# algorithm) and A11 (the sharded engine) are ported, so none raises now
 NOT_PORTED = [
     ("engine-sharded", (), dict(engine="sharded"), "A11"),
     ("trace", (), dict(trace=True), "A6"),
@@ -262,18 +269,19 @@ NOT_PORTED = [
     ("distance2-sharded", ("distance2",), dict(engine="sharded"), "A11"),
     ("algorithm-dynamic", ("dynamic",), {}, "A9"),
 ]
-PORTED_ITEMS = ("A5", "A6", "A9", "A10")
+PORTED_ITEMS = ("A5", "A6", "A9", "A10", "A11")
 
 
 @pytest.mark.parametrize("args,opts,item", [c[1:] for c in NOT_PORTED],
                          ids=[c[0] for c in NOT_PORTED])
 def test_options_outside_the_slice_raise_naming_their_item(args, opts, item):
-    """A11 still raises naming its item.  The options of the items ported
-    since (A5, A6, A9, A10) run: a valid, converged coloring whose fields
-    equal the same call without the option where the option adds only
-    telemetry or checks (their parity with repro is held in
-    ``tests/test_torch_baselines.py``, ``test_torch_obs.py``,
-    ``test_torch_dynamic.py`` and ``test_torch_guarantee.py``)."""
+    """The options of the items ported since (A5, A6, A9, A10, A11) run: a
+    valid, converged coloring whose fields equal the same call without the
+    option where the option adds only telemetry or checks, and, for
+    ``engine="sharded"`` on one device, the fused call (their parity with
+    repro is held in ``tests/test_torch_baselines.py``,
+    ``test_torch_obs.py``, ``test_torch_dynamic.py``,
+    ``test_torch_guarantee.py`` and ``test_torch_sharded.py``)."""
     g = erdos_renyi(300, 5.0, seed=1)
     if item not in PORTED_ITEMS:
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
@@ -284,7 +292,9 @@ def test_options_outside_the_slice_raise_naming_their_item(args, opts, item):
     assert r.converged and valid(g, r.colors)
     assert r.degradations == ()
     if args in ((), ("distance2",)):
-        plain = repro_torch.color(g, *args, device="cpu")
+        # one device: the sharded engine is the ragged fused call
+        plain = repro_torch.color(g, *args, device="cpu",
+                                  **(dict(mode="fused") if item == "A11" else {}))
         np.testing.assert_array_equal(plain.colors, r.colors)
         assert all(getattr(plain, f) == getattr(r, f) for f in FIELDS)
     if opts.get("trace"):
@@ -642,6 +652,15 @@ def _k3_case(source, seed=14):
         src, W = DeviceCSR.from_csr(g.square(), "cpu").lane_source()
         deg = DeviceCSR.from_csr(g, "cpu").deg_ext
         ids = rng.permutation(g.n)
+    elif source == "csr-shard":  # shard 1 of 3; ids outside it read no row
+        g = power_law(1500, 6.0, seed=seed)
+        plan = PartitionedCSR.from_graph(g, 3)
+        shard = [torch.from_numpy(a[1]) for a in plan.stack_shards(g)]
+        src, W = ShardRows(*shard, int(plan.starts[1]), g.n, plan.n_loc,
+                           g.max_degree).lane_source()
+        deg = DeviceCSR.from_csr(g, "cpu").deg_ext
+        ids = np.concatenate([np.arange(plan.starts[1], plan.starts[2])[:900],
+                              rng.permutation(g.n)[:99]])
     elif source == "two-hop-bipartite":
         bg = jacobian_tall_skinny(2000, 64, 4, seed=seed)
         c2r, r2c = (torch.from_numpy(a) for a in bg.padded_halves())
@@ -681,8 +700,28 @@ def _to(source, device):
         if isinstance(getattr(source, f.name), torch.Tensor)})
 
 
-K3_SOURCES = ["table", "dense", "csr", "csr-class", "csr-g2", "two-hop-d2",
-              "two-hop-bipartite", "two-hop-start"]
+K3_SOURCES = ["table", "dense", "csr", "csr-class", "csr-g2", "csr-shard",
+              "two-hop-d2", "two-hop-bipartite", "two-hop-start"]
+
+
+def test_shard_rows_read_in_place_are_its_gathered_rows():
+    """A shard's ``CsrRows`` over its rebased row starts gives each of its
+    ids the row ``ShardRows.rows`` gathers, and every other id no lane."""
+    g = power_law(1500, 6.0, seed=3)
+    plan = PartitionedCSR.from_graph(g, 3)
+    stacked = plan.stack_shards(g)
+    for d in range(plan.ndev):
+        s, e = int(plan.starts[d]), int(plan.starts[d + 1])
+        shard = ShardRows(*(torch.from_numpy(a[d]) for a in stacked), s, g.n,
+                          plan.n_loc, g.max_degree)
+        for width in (None, 4):
+            src, W = shard.lane_source(width)
+            own = torch.arange(s, e, dtype=torch.int32)
+            ids = torch.cat([own, torch.tensor([g.n], dtype=torch.int32)])
+            assert torch.equal(source_tile(src, ids, g.n, W), shard.rows(ids, width))
+            other = torch.cat([torch.arange(0, s), torch.arange(e, g.n)]).int()
+            assert (source_tile(src, other, g.n, W) == g.n).all()
+        assert int(src.row_starts[-1]) == int(g.row_offsets[e] - g.row_offsets[s])
 
 
 def test_k3_cases_take_the_plain_version_on_cpu(zero_counts):
@@ -774,6 +813,37 @@ def test_cuda_superstep_gathers_no_rows(cuda_device, zero_counts, monkeypatch, c
     b = repro_torch.color(g, algorithm, device="cpu", **opts)
     np.testing.assert_array_equal(a.colors, b.colors)
     assert all(getattr(a, f) == getattr(b, f) for f in FIELDS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    ("data_driven", "rmat-g", {}),
+    ("data_driven", "road", dict(heuristic="id", trace=True)),
+    ("distance2", "rmat-g", dict(strategy="onthefly")),
+    ("bipartite", "band", dict(strategy="onthefly")),
+], ids=["rmat-g", "road-unpacked-halo", "d2-onthefly", "bipartite-band"])
+def test_cuda_sharded_matches_cpu(cuda_device, zero_counts, monkeypatch, case):
+    """The sharded engine on three shards of the card equals three shards
+    of the CPU in every field (the halo bytes and trace rows too), with K3
+    launched by every shard and no tile gathered in a superstep."""
+    algorithm, graph, opts = case
+    g = {"band": lambda: jacobian_band(4096, band=3),
+         "road": lambda: road(40000, seed=9)}.get(
+        graph, lambda: build_graph(graph, 0.02))()
+    _superstep_gathers_nothing(monkeypatch)
+    a = repro_torch.color(g, algorithm, engine="sharded", devices=[cuda_device] * 3,
+                          **opts)
+    monkeypatch.undo()
+    assert superstep_tile.launches >= 3 * (a.iterations - 2)
+    assert superstep_csr.launches == 0
+    b = repro_torch.color(g, algorithm, engine="sharded", devices=["cpu"] * 3, **opts)
+    np.testing.assert_array_equal(a.colors, b.colors)
+    assert all(getattr(a, f) == getattr(b, f)
+               for f in FIELDS + ("algorithm", "halo_bytes_per_step"))
+    if opts.get("trace"):
+        np.testing.assert_array_equal(a.trace.steps, b.trace.steps)
+    one = repro_torch.color(g, algorithm, device="cpu", **opts)
+    np.testing.assert_array_equal(a.colors, one.colors)
 
 
 @pytest.mark.cuda
