@@ -155,6 +155,24 @@ Phases, in order; any failure ends the run with a non-zero exit code:
              speculative step, K2 for the tail, no tile gathered, no K1) and
              timed as in phase 9; and K3 over shard 0's rows read in place
              at rmat-er's first step against its plain version.
+15. lm     — the LM stack's serving path (``repro_torch.models``,
+             ``launch/serve_lm.py``; plain PyTorch ops, no kernel of its
+             own): (a) each of the ten reduced configs in float32 with
+             TF32 off, the port's init on a seeded CPU generator copied to
+             the card: forward logits (S = 64, q-chunked), ``loss``,
+             ``ce``, ``lb_loss``, ``z_loss`` and prefill + 4 decode steps,
+             card == CPU within the printed tolerances; (b) ``serve_batch``
+             on qwen3-4b at full width and depth in bfloat16 (batch 4,
+             prompt 64, 16 generated), then the warm loop timed (prefill ms,
+             decode ms a step and tokens/s beside the weight-read bound),
+             one decode step under the profiler (device launches, busy),
+             peak memory, and the teacher-forced prefill + decode logits
+             against the forward; (c) rwkv6-1.6b and recurrentgemma-2b
+             whole, mixtral-8x22b and deepseek-v2-236b at published width
+             cut to 2 layers and run drop-free (capacity ``E / top_k``;
+             their forward at the published capacity factor too): prefill
+             + 4 decode steps against the forward.  The bfloat16 checks
+             hold max |dlogit| to 1/8 of the largest |logit|.
 
 The line before the last is the kernels' JSON record, and the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
@@ -162,8 +180,10 @@ The line before the last is the kernels' JSON record, and the last line is
 from __future__ import annotations
 
 import contextlib
+import copy
 import ctypes
 import dataclasses
+import gc
 import json
 import multiprocessing
 import statistics
@@ -273,7 +293,11 @@ from repro_torch.kernels.superstep.kernel import (  # noqa: E402
     superstep_tile,
     superstep_tile_ref,
 )
+from repro_torch.configs import get_config, list_archs  # noqa: E402
 from repro_torch.launch.coloring_service import ColoringService  # noqa: E402
+from repro_torch.launch.serve_lm import generate, serve_batch  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.training.data import SyntheticData  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA's data sheet
 RESULT_FIELDS = ("iterations", "work_items", "padded_work", "class_cells",
@@ -2991,6 +3015,239 @@ def check_sharded(graphs: dict, dev_cuda, lat: dict) -> dict:
     return {"launches": totals, "times": {"k3 shard": recs}}
 
 
+# --------------------------------------------------------------------------
+# phase 15: the LM stack's serving path
+# --------------------------------------------------------------------------
+
+LM_F32_TOL = 1e-4       # float32 logits, card against CPU (|logit| < ~5)
+LM_LOSS_TOL = 1e-5      # float32 losses, relative and absolute
+# bfloat16 prefill + decode against the forward: 1/8 of the largest
+# |logit|.  The two paths round every GEMM and the caches differently; on
+# the CPU at reduced width RWKV-6 (24 layers) reached 6.6% after 8 steps,
+# the attention families <= 1.5%.
+LM_BF16_REL = 0.125
+LM_SERVE = dict(batch=4, prompt_len=64, gen=16)   # qwen3-4b at full size
+# (arch, depth kept, decode steps) at published width; depth None = whole
+LM_FAMILIES = (("rwkv6-1.6b", None, 4), ("recurrentgemma-2b", None, 4),
+               ("mixtral-8x22b", 2, 4), ("deepseek-v2-236b", 2, 4))
+
+
+def lm_batch(cfg, B: int, S: int, seed: int) -> dict:
+    """numpy inputs from a seed (tokens and labels, VLM patches, or
+    encoder frames and frame labels)."""
+    rng = np.random.default_rng(seed)
+    if cfg.family == "encoder":
+        return {"frames": rng.standard_normal((B, S, cfg.d_frontend), np.float32),
+                "labels": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
+    s_text = S - (cfg.n_patches if cfg.family == "vlm" else 0)
+    tokens = rng.integers(0, cfg.vocab, (B, s_text)).astype(np.int32)
+    b = {"tokens": tokens, "labels": tokens.copy()}
+    if cfg.family == "vlm":
+        b["patches"] = rng.standard_normal((B, cfg.n_patches, cfg.d_frontend),
+                                           np.float32)
+    return b
+
+
+def lm_steps(model, batch: dict, k: int) -> list:
+    """Prefill ``tokens[:, :k]``, then decode the rest teacher-forced: the
+    logits of every step on the host (the prefill's last position first)."""
+    cfg = model.cfg
+    off = cfg.n_patches if cfg.family == "vlm" else 0
+    tokens = batch["tokens"]
+    pre = {n: v for n, v in batch.items() if n != "labels"}
+    pre["tokens"] = tokens[:, :k]
+    caches, lg = model.prefill(pre, tokens.shape[1] + off)
+    out = [lg.float().cpu()]
+    for t in range(k, tokens.shape[1]):
+        caches, lg = model.decode_step(caches, tokens[:, t:t + 1], t + off)
+        out.append(lg.float().cpu())
+    return out
+
+
+def lm_vs_forward(model, batch: dict, k: int) -> tuple[float, float, float]:
+    """``(max |prefill/decode - forward|, max |forward logit|, argmax
+    agreement)`` over the real vocabulary, teacher-forced from ``k``."""
+    V = model.cfg.vocab
+    full = model.forward(batch).float().cpu()[..., :V]
+    steps = lm_steps(model, batch, k)
+    ref = [full[:, t] for t in range(k - 1, full.shape[1])]
+    err = max(float((s[:, :V] - r).abs().max()) for s, r in zip(steps, ref))
+    agree = float(np.mean([(s[:, :V].argmax(-1) == r.argmax(-1)).float().mean()
+                           for s, r in zip(steps, ref)]))
+    return err, float(full.abs().max()), agree
+
+
+def lm_card_vs_cpu(dev_cuda):
+    """Phase 15 (a): every reduced config in float32, TF32 off, the port's
+    init on a seeded CPU generator then copied to the card: forward logits,
+    the losses and prefill + 4 decode steps, card against CPU."""
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        for i, arch in enumerate(list_archs()):
+            cfg = get_config(arch).reduced()
+            cpu = build_model(cfg, "cpu", generator=torch.Generator().manual_seed(i))
+            card = copy.deepcopy(cpu).to(dev_cuda)
+            batch = lm_batch(cfg, 2, 64, seed=i)   # 64 > attn_q_chunk: q-chunked
+            errs = {"logits": float((card.forward(batch).cpu() - cpu.forward(batch))
+                                    [..., :cfg.vocab].abs().max())}
+            with torch.no_grad():
+                (l_card, m_card), (l_cpu, m_cpu) = card.loss(batch), cpu.loss(batch)
+            for name, a, b in [("loss", l_card, l_cpu)] + [
+                    (n, m_card[n], m_cpu[n]) for n in ("ce", "lb_loss", "z_loss")]:
+                a, b = float(a), float(b)
+                if not (np.isfinite(a) and abs(a - b) <= LM_LOSS_TOL * (1 + abs(b))):
+                    fail(f"lm {arch}: {name} on the card {a!r}, on the CPU {b!r}")
+                errs[name] = abs(a - b)
+            if cfg.family != "encoder":
+                short = dict(batch, tokens=batch["tokens"][:, :16])
+                k = short["tokens"].shape[1] - 4
+                errs["decode"] = max(float((a - b)[:, :cfg.vocab].abs().max()) for a, b in
+                                     zip(lm_steps(card, short, k), lm_steps(cpu, short, k)))
+            worst = max(errs["logits"], errs.get("decode", 0.0))
+            if not worst <= LM_F32_TOL:
+                fail(f"lm {arch}: card against CPU {errs} past {LM_F32_TOL}")
+            print(f"  lm {arch:18s} card == CPU: max |dlogit| {worst:.3g} "
+                  f"(tolerance {LM_F32_TOL}), |dloss| {errs['loss']:.3g} "
+                  f"(tolerance {LM_LOSS_TOL} x (1 + |loss|))", flush=True)
+            del cpu, card
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def lm_decode_profile(model, caches, tok, pos: int) -> dict:
+    """One decode step under ``torch.profiler``: the device's launches
+    (kernels, copies and fills), busy time and the step's wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        model.decode_step(caches, tok, pos)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return {"launches": sum(e.count for e in rows),
+            "busy_ms": sum(device_us(e) for e in rows) / 1e3, "wall_ms": wall}
+
+
+def lm_serve_full(dev_cuda) -> dict:
+    """Phase 15 (b): ``serve_batch`` on qwen3-4b at full width and depth in
+    bfloat16, then the same model's teacher-forced prefill + decode
+    against its forward."""
+    cfg = get_config("qwen3-4b")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    cold = serve_batch(cfg, seed=0, device=dev_cuda, **LM_SERVE)
+    cold_s = time.perf_counter() - t
+    t = time.perf_counter()
+    model = build_model(cfg, dev_cuda,
+                        generator=torch.Generator(device=dev_cuda).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    prompts = SyntheticData.for_model(cfg, LM_SERVE["batch"], LM_SERVE["prompt_len"],
+                                      seed=0).batch(0)["tokens"]
+    warm = generate(model, {"tokens": prompts}, prompt_len=LM_SERVE["prompt_len"],
+                    gen=LM_SERVE["gen"])
+    gen_tok = warm["generated"]
+    if not np.array_equal(gen_tok, cold["generated"]):
+        print("  note: the warm run's tokens differ from serve_batch's "
+              f"({int((gen_tok != cold['generated']).sum())} of {gen_tok.size})")
+    step_ms = 1e3 * LM_SERVE["batch"] / warm["decode_tok_s"]
+    bound = weight_bytes / HBM_BYTES_PER_S * 1e3
+
+    seq = np.concatenate([prompts, gen_tok], axis=1)
+    caches, _ = model.prefill({"tokens": seq[:, :-1]}, seq.shape[1])
+    prof = lm_decode_profile(model, caches, seq[:, -1:], seq.shape[1] - 1)
+    del caches
+    err, scale, agree = lm_vs_forward(model, {"tokens": seq}, LM_SERVE["prompt_len"])
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    print(f"  lm qwen3-4b full ({cfg.n_layers} layers, {n_params:,} parameters, "
+          f"{weight_bytes / 2**20:.1f} MiB of bf16 weights): init {init_s:.1f} s; "
+          f"serve_batch batch {LM_SERVE['batch']}, prompt {LM_SERVE['prompt_len']}, "
+          f"gen {LM_SERVE['gen']}: cold call {cold_s:.2f} s (prefill "
+          f"{cold['prefill_s'] * 1e3:.3f} ms, {cold['decode_tok_s']:.1f} tok/s)", flush=True)
+    print(f"  lm qwen3-4b warm: prefill {warm['prefill_s'] * 1e3:.3f} ms, decode "
+          f"{step_ms:.3f} ms/step ({warm['decode_tok_s']:.1f} tok/s) against the "
+          f"weight-read bound {bound:.3f} ms ({weight_bytes / 1e9:.2f} GB at 3.35 TB/s); "
+          f"one decode step: {prof['launches']} device launches, busy "
+          f"{prof['busy_ms']:.3f} of {prof['wall_ms']:.3f} ms; peak "
+          f"{peak:.1f} MiB allocated; {card_line()}", flush=True)
+    print(f"  lm qwen3-4b prefill + {seq.shape[1] - LM_SERVE['prompt_len']} decode "
+          f"steps against forward: max |dlogit| {err:.4g} (tolerance "
+          f"{LM_BF16_REL} x max |logit| {scale:.4g} = {LM_BF16_REL * scale:.4g}), "
+          f"argmax agreement {agree:.4f}", flush=True)
+    if not (np.isfinite(err) and err <= LM_BF16_REL * scale):
+        fail(f"lm qwen3-4b: prefill/decode against forward {err} past "
+             f"{LM_BF16_REL} x {scale}")
+    return {"step_ms": step_ms, "bound_ms": bound, **prof}
+
+
+def lm_families_full(dev_cuda):
+    """Phase 15 (c): RWKV-6 and RecurrentGemma whole, Mixtral and
+    DeepSeek-V2 at published width with their depth cut, in bfloat16:
+    prefill + decode against the forward.  MoE runs drop-free (capacity
+    ``E / top_k``: a group's tokens all fit) so that the two paths route
+    alike; the forward at the published capacity factor is run too."""
+    for i, (arch, depth, steps) in enumerate(LM_FAMILIES):
+        cfg = get_config(arch)
+        cuts = []
+        if depth is not None:
+            cuts.append(f"n_layers {cfg.n_layers} -> {depth}")
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        if cfg.n_experts:
+            drop_free = cfg.n_experts / cfg.top_k
+            cuts.append(f"capacity_factor {cfg.capacity_factor} -> {drop_free:g}")
+        t = time.perf_counter()
+        model = build_model(cfg, dev_cuda,
+                            generator=torch.Generator(device=dev_cuda).manual_seed(i))
+        n_params = sum(p.numel() for p in model.parameters())
+        batch = lm_batch(cfg, 2, 32 + steps, seed=i)
+        published = None
+        if cfg.n_experts:
+            published = model.forward(batch)
+            model.cfg = dataclasses.replace(cfg, capacity_factor=drop_free)
+        err, scale, agree = lm_vs_forward(model, batch, 32)
+        moved = ("" if published is None else
+                 f"; the forward at capacity_factor {cfg.capacity_factor} is finite: "
+                 f"{bool(torch.isfinite(published[..., :cfg.vocab]).all())}")
+        print(f"  lm {arch} ({', '.join(cuts) or 'uncut'}; {n_params:,} parameters): "
+              f"prefill 32 + {steps} decode steps against forward: max |dlogit| "
+              f"{err:.4g} (tolerance {LM_BF16_REL * scale:.4g}), argmax agreement "
+              f"{agree:.4f}{moved}; {time.perf_counter() - t:.1f} s", flush=True)
+        if not (np.isfinite(err) and err <= LM_BF16_REL * scale):
+            fail(f"lm {arch}: prefill/decode against forward {err} past "
+                 f"{LM_BF16_REL} x {scale}")
+        if published is not None and not torch.isfinite(published[..., :cfg.vocab]).all():
+            fail(f"lm {arch}: non-finite logits at the published capacity factor")
+        del model, published
+        torch.cuda.empty_cache()
+
+
+def check_lm(dev_cuda) -> dict:
+    """Phase 15: the LM stack's serving path on the card (no kernel of its
+    own: plain PyTorch ops)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 15 starts with {torch.cuda.memory_allocated() / 2**20:.1f} MiB "
+          f"allocated", flush=True)
+    t = time.perf_counter()
+    lm_card_vs_cpu(dev_cuda)
+    print(f"lm card == CPU took {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    served = lm_serve_full(dev_cuda)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"lm qwen3-4b took {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    lm_families_full(dev_cuda)
+    print(f"lm families took {time.perf_counter() - t:.1f} s", flush=True)
+    return served
+
+
 def kernels_record(full: dict) -> list:
     """The kernels' JSON record: launches summed over the main paths'
     counted runs (distance-1, distance-2, the comparison, phase 12's
@@ -3099,6 +3356,9 @@ def main():
     for k, c in sharded["launches"].items():
         full["launches"][k] += c
     print(f"sharded took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    check_lm(dev_cuda)
+    print(f"lm took {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = kernels_record(full)
     print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s", flush=True)

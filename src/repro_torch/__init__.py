@@ -5,8 +5,10 @@ Public entry points: ``repro_torch.color``, ``color_batch`` and
 ``ColoringService`` of ``repro_torch.launch.coloring_service``, and the
 fault injectors of ``repro_torch.faultlab``.  They run on the card by default
 (``device="cuda"``), through hand-written CUDA kernels for Hopper
-(``csrc/``); ``device="cpu"`` runs their plain PyTorch versions.  The package imports no JAX and nothing
-of ``repro``.  See README.md for what this slice covers.
+(``csrc/``); ``device="cpu"`` runs their plain PyTorch versions.  The LM
+stack's serving path is ``repro_torch.configs``, ``repro_torch.models`` and
+``repro_torch.launch.serve_lm`` (plain PyTorch ops, on the card by default).
+The package imports no JAX and nothing of ``repro``.  See README.md for what this slice covers.
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,303 @@
+"""Composable decoder/encoder stack covering all assigned families (the port
+of ``repro.models.transformer``).
+
+``repro`` plans the layers as *segments* (plain layers, then scanned runs of
+whole periods) and stacks a scanned segment's weights on a leading axis.
+The port keeps the plan, which says how a ``repro`` parameter tree unstacks
+(``models/convert.py``), and holds one ``Block`` per layer in model order,
+run in a Python loop.
+
+Modes: ``forward``/``train`` (full sequence, no cache), ``prefill`` (full
+sequence, fills per-layer caches), ``decode`` (one token, reads and writes
+the caches in place).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import rwkv6
+from repro_torch.models.layers import (
+    DTYPES,
+    MLP,
+    Norm,
+    _head_rmsnorm,
+    attention,
+    dense_init_,
+    linear,
+    mlp_apply,
+    new_param,
+    norm_apply,
+    rope_apply,
+)
+from repro_torch.models.mla import MLA, mla_attention, mla_decode_absorbed
+from repro_torch.models.moe import MoE, moe_apply
+from repro_torch.models.rglru import RGLRU, rglru_apply, rglru_decode_step
+
+__all__ = ["Segment", "layer_specs", "plan_segments", "Attention", "Block",
+           "init_cache", "apply_stack"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    kind: str                 # "scan" | "plain"
+    specs: tuple[tuple[str, str], ...]   # per-layer (block, ffn) within a period
+    count: int                # scan length (periods) or 1 for plain
+
+
+def layer_specs(cfg: ModelConfig) -> list[tuple[str, str]]:
+    specs = []
+    for kind, ffn in zip(cfg.layer_kinds(), cfg.ffn_kinds()):
+        if cfg.family == "rwkv":
+            specs.append(("rwkv", "none"))
+        elif kind == "rec":
+            specs.append(("rec", "dense"))
+        else:
+            specs.append(("mla" if cfg.mla else "attn", ffn))
+    return specs
+
+
+def plan_segments(cfg: ModelConfig) -> list[Segment]:
+    """``repro``'s segments: the leading dense layers, then the full periods
+    (one scanned segment), then the trailing partial period, in layer order."""
+    specs = layer_specs(cfg)
+    segments: list[Segment] = []
+    start = cfg.first_dense_layers
+    for i in range(start):
+        segments.append(Segment("plain", (specs[i],), 1))
+    period = max(len(cfg.pattern), 1)
+    rest = specs[start:]
+    n_full = len(rest) // period
+    if n_full:
+        segments.append(Segment("scan", tuple(rest[:period]), n_full))
+    for s in rest[n_full * period:]:
+        segments.append(Segment("plain", (s,), 1))
+    return segments
+
+
+# ---------------------------------------------------------------------------
+# per-block weights
+# ---------------------------------------------------------------------------
+
+class Attention(nn.Module):
+    def __init__(self, cfg, dtype, device):
+        super().__init__()
+        d, Hq, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        self.wq = new_param((d, Hq * Dh), dtype, device)
+        self.wk = new_param((d, Hkv * Dh), dtype, device)
+        self.wv = new_param((d, Hkv * Dh), dtype, device)
+        self.wo = new_param((Hq * Dh, d), dtype, device)
+        if cfg.qk_norm:
+            self.q_norm = new_param((Dh,), dtype, device)
+            self.k_norm = new_param((Dh,), dtype, device)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator):
+        for w in (self.wq, self.wk, self.wv, self.wo):
+            dense_init_(w, generator)
+        if hasattr(self, "q_norm"):
+            self.q_norm.fill_(1.0)
+            self.k_norm.fill_(1.0)
+
+
+class Block(nn.Module):
+    """One residual layer; its attributes are ``repro``'s leaf names
+    (``ln1``, ``attn`` | ``rec`` | ``rwkv``, ``ln2``, ``ffn``)."""
+
+    def __init__(self, cfg, spec, device):
+        super().__init__()
+        self.spec = spec
+        block, ffn = spec
+        dtype = DTYPES[cfg.param_dtype]
+        d = cfg.d_model
+        self.ln1 = Norm(d, cfg.norm, dtype, device)
+        if block == "attn":
+            self.attn = Attention(cfg, dtype, device)
+        elif block == "mla":
+            self.attn = MLA(cfg, dtype, device)
+        elif block == "rec":
+            self.rec = RGLRU(cfg, dtype, device)
+        elif block == "rwkv":
+            self.rwkv = rwkv6.RWKV(cfg, dtype, device)
+        else:
+            raise ValueError(block)
+        if block == "rwkv" or ffn != "none":
+            self.ln2 = Norm(d, cfg.norm, dtype, device)
+        if ffn == "moe":
+            self.ffn = MoE(cfg, dtype, device)
+        elif ffn == "dense":
+            self.ffn = MLP(d, cfg.d_ff, cfg.act, dtype, device)
+
+
+# ---------------------------------------------------------------------------
+# per-block caches
+# ---------------------------------------------------------------------------
+
+def _block_cache(cfg, spec, B, T, dtype, device):
+    block, _ = spec
+    Hkv, Dh = cfg.n_kv_heads, cfg.head_dim
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    if block == "attn":
+        Tc = min(T, cfg.window) if cfg.window else T
+        return {"k": zeros(B, Tc, Hkv, Dh), "v": zeros(B, Tc, Hkv, Dh)}
+    if block == "mla":
+        return {"ckv": zeros(B, T, cfg.kv_lora), "krope": zeros(B, T, cfg.qk_rope_dim)}
+    if block == "rec":
+        return {"h": zeros(B, cfg.d_rnn, dt=torch.float32),
+                "conv": zeros(B, cfg.conv_width - 1, cfg.d_rnn)}
+    if block == "rwkv":
+        H = cfg.d_model // cfg.rwkv_head_dim
+        K = cfg.rwkv_head_dim
+        return {"state": zeros(B, H, K, K, dt=torch.float32),
+                "sa": zeros(B, cfg.d_model), "sc": zeros(B, cfg.d_model)}
+    raise ValueError(block)
+
+
+def init_cache(cfg: ModelConfig, B: int, T: int, device) -> list[dict]:
+    """Zero caches, one dict per layer in model order."""
+    dtype = DTYPES[cfg.act_dtype]
+    return [_block_cache(cfg, spec, B, T, dtype, device) for spec in layer_specs(cfg)]
+
+
+# ---------------------------------------------------------------------------
+# block apply
+# ---------------------------------------------------------------------------
+
+def _ring_kpos(pos: int, Wd: int, device):
+    s = torch.arange(Wd, dtype=torch.int32, device=device)
+    return pos - torch.remainder(pos - s, Wd)
+
+
+def _attn_qkv(p, x, positions, cfg):
+    B, S, _ = x.shape
+    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = linear(x, p.wq).reshape(B, S, Hq, Dh)
+    k = linear(x, p.wk).reshape(B, S, Hkv, Dh)
+    v = linear(x, p.wv).reshape(B, S, Hkv, Dh)
+    if cfg.qk_norm:
+        q = _head_rmsnorm(q, p.q_norm)
+        k = _head_rmsnorm(k, p.k_norm)
+    q = rope_apply(q, positions, cfg.rope_theta)
+    k = rope_apply(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _attn_block(p, x, cfg, positions, mode, cache, pos):
+    B, S, _ = x.shape
+    if mode != "decode":
+        q, k, v = _attn_qkv(p, x, positions, cfg)
+        out = attention(q, k, v, q_pos=positions, k_pos=positions,
+                        causal=cfg.causal, window=cfg.window,
+                        q_chunk=cfg.attn_q_chunk)
+        y = linear(out.reshape(B, S, -1), p.wo)
+        if mode == "prefill":
+            if cfg.window and cfg.window < S:          # ring buffer: last Wd keys
+                Wd = cfg.window
+                sel = torch.arange(S - Wd, S, device=x.device)
+                cache["k"][:, sel % Wd] = k[:, sel].to(cache["k"].dtype)
+                cache["v"][:, sel % Wd] = v[:, sel].to(cache["v"].dtype)
+            else:
+                cache["k"][:, :S] = k.to(cache["k"].dtype)
+                cache["v"][:, :S] = v.to(cache["v"].dtype)
+        return y
+
+    # ---- decode: one token at position ``pos`` ----------------------------
+    q, k, v = _attn_qkv(p, x, positions, cfg)
+    Tc = cache["k"].shape[1]
+    if cfg.window and Tc == cfg.window:
+        slot = pos % Tc
+        k_pos = _ring_kpos(pos, Tc, x.device)
+    else:
+        slot = pos
+        k_pos = torch.arange(Tc, dtype=torch.int32, device=x.device)
+    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    out = attention(q, cache["k"], cache["v"], q_pos=positions, k_pos=k_pos,
+                    causal=True, window=None, q_chunk=cfg.attn_q_chunk)
+    return linear(out.reshape(B, 1, -1), p.wo)
+
+
+def _mla_block(p, x, cfg, positions, mode, cache, pos):
+    if mode != "decode":
+        y, (c_kv, k_rope) = mla_attention(p, x, positions, cfg)
+        if mode == "prefill":
+            S = x.shape[1]
+            cache["ckv"][:, :S] = c_kv.to(cache["ckv"].dtype)
+            cache["krope"][:, :S] = k_rope.to(cache["krope"].dtype)
+        return y
+    y, _, _ = mla_decode_absorbed(p, x, pos, cache["ckv"], cache["krope"], cfg)
+    return y
+
+
+def _block_apply(p, x, cfg, positions, mode, cache, pos):
+    """One layer; ``cache`` (prefill and decode) is updated in place.
+    Returns (x, (lb_loss, z_loss)) or (x, None) for a layer with no MoE."""
+    block, ffn = p.spec
+    h = norm_apply(p.ln1, x, cfg.norm)
+    if block == "attn":
+        y = _attn_block(p.attn, h, cfg, positions, mode, cache, pos)
+    elif block == "mla":
+        y = _mla_block(p.attn, h, cfg, positions, mode, cache, pos)
+    elif block == "rec":
+        if mode == "decode":
+            y, cache["h"], cache["conv"] = rglru_decode_step(
+                p.rec, h, cache["h"], cache["conv"])
+        else:
+            y, (hst, conv) = rglru_apply(p.rec, h)
+            if mode == "prefill":
+                cache["h"], cache["conv"] = hst, conv.to(cache["conv"].dtype)
+    elif block == "rwkv":
+        H = cfg.d_model // cfg.rwkv_head_dim
+        if mode == "decode":
+            y, cache["sa"], cache["state"] = rwkv6.rwkv_time_mix_step(
+                p.rwkv, h, H, cache["sa"], cache["state"])
+        else:
+            y, (sa, state) = rwkv6.rwkv_time_mix(p.rwkv, h, H)
+            if mode == "prefill":
+                cache["sa"], cache["state"] = sa, state
+        x = x + y
+        h2 = norm_apply(p.ln2, x, cfg.norm)
+        if mode == "decode":
+            y2, cache["sc"] = rwkv6.rwkv_channel_mix_step(p.rwkv, h2, cache["sc"])
+        else:
+            y2, sc = rwkv6.rwkv_channel_mix(p.rwkv, h2)
+            if mode == "prefill":
+                cache["sc"] = sc
+        return x + y2, None
+    else:
+        raise ValueError(block)
+    x = x + y
+
+    aux = None
+    if ffn != "none":
+        h = norm_apply(p.ln2, x, cfg.norm)
+        if ffn == "moe":
+            y, moe_aux = moe_apply(p.ffn, h, cfg)
+            aux = (moe_aux["moe_lb_loss"], moe_aux["moe_z_loss"])
+        else:
+            y = mlp_apply(p.ffn, h, cfg.act)
+        x = x + y
+    return x, aux
+
+
+# ---------------------------------------------------------------------------
+# stack apply
+# ---------------------------------------------------------------------------
+
+def apply_stack(layers, x, cfg, positions, mode, caches=None, pos=None):
+    """Run every layer in order.  Returns (x, {"lb": ..., "z": ...}); in
+    ``prefill`` and ``decode`` mode ``caches`` (one dict a layer) is updated
+    in place."""
+    lb = z = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, layer in enumerate(layers):
+        c = caches[i] if caches is not None else None
+        x, aux = _block_apply(layer, x, cfg, positions, mode, c, pos)
+        if aux is not None:
+            lb, z = lb + aux[0], z + aux[1]
+    return x, {"lb": lb, "z": z}

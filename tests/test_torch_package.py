@@ -1245,3 +1245,96 @@ def test_cuda_service_worker_error_reaches_the_caller(cuda_device, zero_counts,
         m = svc.metrics()
     assert not svc._worker.is_alive()
     assert m["failed"] == 1 and m["completed"] == 1 and m["slow_requests"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the LM stack's serving path on the card (no kernel of its own)
+# ---------------------------------------------------------------------------
+
+LM_F32_TOL = 1e-4   # float32 logits, card against CPU (TF32 off)
+
+
+@pytest.fixture
+def no_tf32():
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-4b", "mixtral-8x22b", "deepseek-v2-236b",
+                                  "recurrentgemma-2b", "rwkv6-1.6b", "internvl2-26b",
+                                  "hubert-xlarge"])
+def test_cuda_lm_forward_matches_cpu(cuda_device, no_tf32, arch):
+    """A reduced config's forward logits and loss, and prefill + 4 decode
+    steps, on the card against the CPU with the same weights."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch).reduced()
+    cpu = build_model(cfg, "cpu", generator=torch.Generator().manual_seed(3))
+    card = copy.deepcopy(cpu).to(cuda_device)
+    rng = np.random.default_rng(3)
+    if cfg.family == "encoder":
+        batch = {"frames": rng.standard_normal((2, 64, cfg.d_frontend), np.float32),
+                 "labels": rng.integers(0, cfg.vocab, (2, 64)).astype(np.int32)}
+    else:
+        s_text = 64 - cfg.n_patches
+        batch = {"tokens": rng.integers(0, cfg.vocab, (2, s_text)).astype(np.int32)}
+        batch["labels"] = batch["tokens"]
+        if cfg.family == "vlm":
+            batch["patches"] = rng.standard_normal(
+                (2, cfg.n_patches, cfg.d_frontend), np.float32)
+    got, want = card.forward(batch), cpu.forward(batch)
+    assert got.device.type == "cuda" and torch.isfinite(got).all()
+    assert (got.cpu() - want)[..., :cfg.vocab].abs().max() <= LM_F32_TOL
+    with torch.no_grad():
+        assert card.loss(batch)[0].item() == pytest.approx(
+            cpu.loss(batch)[0].item(), rel=1e-5, abs=1e-5)
+    if cfg.family == "encoder":
+        return
+    off = cfg.n_patches if cfg.family == "vlm" else 0
+    pre = {n: v for n, v in batch.items() if n != "labels"}
+    pre["tokens"] = batch["tokens"][:, :12]
+    (ca, la), (cb, lb) = card.prefill(pre, 16 + off), cpu.prefill(pre, 16 + off)
+    for t in range(12, 16):
+        tok = batch["tokens"][:, t:t + 1]
+        assert (la.cpu() - lb)[:, :cfg.vocab].abs().max() <= LM_F32_TOL
+        (ca, la), (cb, lb) = card.decode_step(ca, tok, t + off), cpu.decode_step(cb, tok, t + off)
+    assert (la.cpu() - lb)[:, :cfg.vocab].abs().max() <= LM_F32_TOL
+
+
+@pytest.mark.cuda
+def test_cuda_lm_build_model_defaults_to_the_card(cuda_device):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    model = build_model(get_config("qwen3-4b").reduced())
+    assert model.device.type == "cuda"
+    assert all(p.device.type == "cuda" for p in model.parameters())
+    assert model.init_cache(2, 8)[0]["k"].device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_cuda_serve_batch(cuda_device, no_tf32):
+    """``serve_batch`` with no ``device=`` runs on the card; ``generate`` on
+    the card's copy of CPU weights picks the CPU's greedy tokens."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve_lm import generate, serve_batch
+    from repro_torch.models import build_model
+
+    cfg = get_config("qwen3-4b").reduced()
+    out = serve_batch(cfg, batch=2, prompt_len=8, gen=6)
+    assert out["generated"].shape == (2, 6)
+    assert ((out["generated"] >= 0) & (out["generated"] < cfg.vocab)).all()
+    cpu = build_model(cfg, "cpu", generator=torch.Generator().manual_seed(5))
+    card = copy.deepcopy(cpu).to(cuda_device)
+    prompts = {"tokens": np.random.default_rng(5).integers(0, cfg.vocab, (2, 8)).astype(np.int32)}
+    a = generate(card, prompts, prompt_len=8, gen=6)["generated"]
+    b = generate(cpu, prompts, prompt_len=8, gen=6)["generated"]
+    np.testing.assert_array_equal(a, b)
