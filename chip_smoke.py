@@ -173,6 +173,28 @@ Phases, in order; any failure ends the run with a non-zero exit code:
              their forward at the published capacity factor too): prefill
              + 4 decode steps against the forward.  The bfloat16 checks
              hold max |dlogit| to 1/8 of the largest |logit|.
+16. training — the LM stack's training path (``repro_torch.training``,
+             ``launch/train.py``, ``distributed/fault_tolerance.py``; plain
+             PyTorch, no kernel of its own): (a) seven families' reduced
+             configs in float32 with TF32 off, the port's init on a seeded
+             CPU generator copied to the card: step-0 gradients per leaf;
+             three AdamW steps, each step's loss and ``grad_norm`` against
+             the CPU's at the card's parameters of that step, and the
+             parameters after three steps against the CPU's own three-step
+             run, within the printed tolerances; then a checkpointed 12-step
+             run on the card that crashes at step 8 and is resumed by
+             ``run_with_restarts``, ending within 1e-3 of the uninterrupted
+             run's loss; (b) qwen3-4b at full width and depth, step 0 (batch
+             2, sequence 256) in float32 against the same weights cast to
+             bfloat16: the loss within 1%, the gradient norm within 10%;
+             (c) ``train_loop`` on qwen3-4b at full size in bfloat16 (remat
+             on, batch 2, sequence 256, 8 steps): every loss finite; then
+             the same 8 steps through ``init_train_state`` and
+             ``make_train_step``, each timed: every loss and ``grad_norm``
+             finite; per warm step the median ms, tokens a second, peak
+             MiB, one step's launches and busy share under the profiler,
+             the model FLOP rate against the bf16 dense peak, and the loss
+             with its backward and ``adamw_update`` timed apart.
 
 The line before the last is the kernels' JSON record, and the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
@@ -293,13 +315,18 @@ from repro_torch.kernels.superstep.kernel import (  # noqa: E402
     superstep_tile,
     superstep_tile_ref,
 )
+import repro_torch.launch.train as train_launcher  # noqa: E402
 from repro_torch.configs import get_config, list_archs  # noqa: E402
+from repro_torch.distributed.fault_tolerance import run_with_restarts  # noqa: E402
 from repro_torch.launch.coloring_service import ColoringService  # noqa: E402
 from repro_torch.launch.serve_lm import generate, serve_batch  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.training import AdamWConfig, init_train_state, make_train_step  # noqa: E402
 from repro_torch.training.data import SyntheticData  # noqa: E402
+from repro_torch.training.optimizer import _global_norm, adamw_update  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA's data sheet
+BF16_DENSE_FLOPS = 989e12  # H100 SXM bf16 dense tensor-core peak, same sheet
 RESULT_FIELDS = ("iterations", "work_items", "padded_work", "class_cells",
                  "converged")
 KERNELS = (superstep_csr, serial_tail_csr, superstep_tile, firstfit_tile,
@@ -3077,13 +3104,22 @@ def lm_vs_forward(model, batch: dict, k: int) -> tuple[float, float, float]:
     return err, float(full.abs().max()), agree
 
 
+@contextlib.contextmanager
+def no_tf32():
+    """TF32 off for float32 GEMMs and convolutions inside the context."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
 def lm_card_vs_cpu(dev_cuda):
     """Phase 15 (a): every reduced config in float32, TF32 off, the port's
     init on a seeded CPU generator then copied to the card: forward logits,
     the losses and prefill + 4 decode steps, card against CPU."""
-    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    try:
+    with no_tf32():
         for i, arch in enumerate(list_archs()):
             cfg = get_config(arch).reduced()
             cpu = build_model(cfg, "cpu", generator=torch.Generator().manual_seed(i))
@@ -3111,25 +3147,32 @@ def lm_card_vs_cpu(dev_cuda):
                   f"(tolerance {LM_F32_TOL}), |dloss| {errs['loss']:.3g} "
                   f"(tolerance {LM_LOSS_TOL} x (1 + |loss|))", flush=True)
             del cpu, card
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
 
-def lm_decode_profile(model, caches, tok, pos: int) -> dict:
-    """One decode step under ``torch.profiler``: the device's launches
-    (kernels, copies and fills), busy time and the step's wall."""
+def device_profile(call) -> tuple:
+    """``call()`` under ``torch.profiler``: ``(what it returned, {the
+    device's launches (kernels, copies and fills), busy time, the call's
+    wall, the device rows by time})``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        model.decode_step(caches, tok, pos)
+        out = call()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
     rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    return {"launches": sum(e.count for e in rows),
-            "busy_ms": sum(device_us(e) for e in rows) / 1e3, "wall_ms": wall}
+    top = sorted(((device_us(e) / 1e3, e.count, e.key) for e in rows), reverse=True)
+    return out, {"launches": sum(e.count for e in rows),
+                 "busy_ms": sum(device_us(e) for e in rows) / 1e3, "wall_ms": wall,
+                 "top": top}
+
+
+def lm_decode_profile(model, caches, tok, pos: int) -> dict:
+    """One decode step under ``torch.profiler``: the device's launches,
+    busy time and the step's wall."""
+    return device_profile(lambda: model.decode_step(caches, tok, pos))[1]
 
 
 def lm_serve_full(dev_cuda) -> dict:
@@ -3248,6 +3291,301 @@ def check_lm(dev_cuda) -> dict:
     return served
 
 
+# --------------------------------------------------------------------------
+# phase 16: the LM stack's training path
+# --------------------------------------------------------------------------
+
+# every family of the LM stack: dense, MoE, MLA + MoE, RWKV-6, RG-LRU hybrid,
+# VLM, encoder (reduced configs, float32)
+TRAIN_FAMILIES = ("qwen3-4b", "mixtral-8x22b", "deepseek-v2-236b", "rwkv6-1.6b",
+                  "recurrentgemma-2b", "internvl2-26b", "hubert-xlarge")
+TRAIN_LR, TRAIN_STEPS = 1e-3, 3
+TRAIN_TOL = 1e-4   # loss and grad_norm relative; step-0 gradients per leaf
+# AdamW turns a gradient's sign into a step of lr: parameters after k steps
+# within 2 lr k, their mean |difference| within 1e-3 lr k.  The moved
+# parameters move the later gradients too, so each step's loss and
+# grad_norm are held against the CPU's at the card's parameters of that
+# step; against the CPU's own run they are read, and only the loss gated.
+TRAIN_MEAN_TOL = 1e-3 * TRAIN_LR * TRAIN_STEPS
+TRAIN_RESTART_TOL = 1e-3   # tests/test_checkpoint.py's bound on repro
+# qwen3-4b at full size, step 0 in bfloat16 against float32 (relative); a
+# CPU reading at reduced width gave 6e-5 and 0.3%
+BF16_LOSS_REL, BF16_GNORM_REL = 0.01, 0.10
+TRAIN_FULL = dict(steps=8, batch_size=2, seq_len=256)
+TRAIN_FULL_LR = 3e-4   # train_loop's default
+TRAIN_PROFILED = 2   # the warm step run under the profiler (not in the median)
+
+
+def loss_grads(model, batch) -> tuple[float, dict]:
+    """``Model.loss`` and its backward: the loss and each gradient on the
+    host (a leaf the loss does not reach fails)."""
+    loss, _ = model.loss(batch)
+    loss.backward()
+    grads = {}
+    for n, p in model.named_parameters():
+        if p.grad is None:
+            fail(f"train {model.cfg.name}: no gradient for {n}")
+        grads[n] = p.grad.float().cpu()
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def train_card_vs_cpu(dev_cuda):
+    """Phase 16 (a): each family's reduced config in float32, TF32 off, the
+    port's init on a seeded CPU generator copied to the card: step-0
+    gradients per leaf, then three AdamW steps on the card, each held
+    against the CPU's loss and gradient norm at the card's parameters of
+    that step, and the parameters after them against the CPU's own run."""
+    with no_tf32():
+        for i, arch in enumerate(TRAIN_FAMILIES):
+            cfg = get_config(arch).reduced()
+            cpu = build_model(cfg, "cpu", generator=torch.Generator().manual_seed(i))
+            card = copy.deepcopy(cpu).to(dev_cuda)
+            here = copy.deepcopy(cpu)   # the card's parameters, step by step
+            data = SyntheticData.for_model(cfg, 2, 64, seed=i)   # q-chunked, 2 scan chunks
+            batches = [data.batch(s) for s in range(TRAIN_STEPS)]
+            (l_cpu, g_cpu), (l_card, g_card) = (loss_grads(m, batches[0]) for m in (cpu, card))
+            grad_err = max(float((g_card[n] - g_cpu[n]).abs().max())
+                           / max(float(g_cpu[n].abs().max()), 1e-30) for n in g_cpu)
+            if not (np.isfinite(l_card) and abs(l_card - l_cpu) <= TRAIN_TOL * abs(l_cpu)):
+                fail(f"train {arch}: step-0 loss on the card {l_card!r}, on the CPU {l_cpu!r}")
+            if not grad_err <= TRAIN_TOL:
+                fail(f"train {arch}: step-0 gradients card against CPU {grad_err:.3g} "
+                     f"of a leaf's largest |g|, past {TRAIN_TOL}")
+            opt = AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=0, total_steps=TRAIN_STEPS)
+            states = [init_train_state(m) for m in (cpu, card)]
+            steps = [make_train_step(m, opt) for m in (cpu, card)]
+            worst = {"loss": 0.0, "grad_norm": 0.0}
+            drift = {"loss": 0.0, "grad_norm": 0.0}
+            for b in batches:   # the states are updated in place
+                with torch.no_grad():
+                    for ph, pc in zip(here.parameters(), card.parameters()):
+                        ph.copy_(pc)
+                l_here, g_here = loss_grads(here, b)
+                ref = {"loss": l_here, "grad_norm": float(_global_norm(list(g_here.values())))}
+                _, m_cpu = steps[0](states[0], b)
+                _, m_card = steps[1](states[1], b)
+                for key in ("loss", "grad_norm"):
+                    a = float(m_card[key])
+                    err = abs(a - ref[key]) / abs(ref[key])
+                    if not (np.isfinite(a) and err <= TRAIN_TOL):
+                        fail(f"train {arch}: {key} on the card {a!r}, on the CPU at the "
+                             f"same parameters {ref[key]!r} (relative {err:.3g}, "
+                             f"tolerance {TRAIN_TOL})")
+                    worst[key] = max(worst[key], err)
+                    r = float(m_cpu[key])
+                    drift[key] = max(drift[key], abs(a - r) / abs(r))
+                if not drift["loss"] <= TRAIN_TOL:
+                    fail(f"train {arch}: loss on the card {float(m_card['loss'])!r}, in the "
+                         f"CPU's run {float(m_cpu['loss'])!r} (tolerance {TRAIN_TOL})")
+            diffs = torch.cat([(pc.detach().cpu() - pp.detach()).abs().flatten()
+                               for pc, pp in zip(card.parameters(), cpu.parameters())])
+            dmax, dmean = float(diffs.max()), float(diffs.mean())
+            if not (dmax <= 2 * TRAIN_LR * TRAIN_STEPS and dmean <= TRAIN_MEAN_TOL):
+                fail(f"train {arch}: parameters after {TRAIN_STEPS} steps differ by max "
+                     f"{dmax:.3g} (allowance {2 * TRAIN_LR * TRAIN_STEPS:.3g}), mean "
+                     f"{dmean:.3g} (allowance {TRAIN_MEAN_TOL:.3g})")
+            print(f"  train {arch:18s} card == CPU: step-0 grads {grad_err:.3g} of a leaf's "
+                  f"max |g|; {TRAIN_STEPS} steps at the same parameters: |dloss| rel "
+                  f"{worst['loss']:.3g}, |dgnorm| rel {worst['grad_norm']:.3g} (tolerance "
+                  f"{TRAIN_TOL}); against the CPU's run: |dloss| rel {drift['loss']:.3g}, "
+                  f"|dgnorm| rel {drift['grad_norm']:.3g}, params max {dmax:.3g} / mean "
+                  f"{dmean:.3g} (allowance {2 * TRAIN_LR * TRAIN_STEPS:.3g} / "
+                  f"{TRAIN_MEAN_TOL:.3g})", flush=True)
+            del cpu, card, here, states, steps
+
+
+def train_restart(dev_cuda):
+    """Phase 16 (a): a checkpointed run on the card that dies at step 8 and
+    is resumed by ``run_with_restarts`` against the uninterrupted run."""
+    cfg = get_config("qwen3-4b").reduced()
+    kw = dict(steps=12, batch_size=4, seq_len=16, lr=1e-3, log_every=4, seed=3,
+              device=dev_cuda)
+    calls = []
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = str(Path(tmp) / "ck")
+        ref = train_launcher.train_loop(cfg, ckpt_dir=str(Path(tmp) / "ref"),
+                                        ckpt_every=100, **kw)
+
+        def run(start):
+            calls.append(start)
+            return train_launcher.train_loop(
+                cfg, ckpt_dir=ck, ckpt_every=4, resume=start > 0,
+                fail_at_step=8 if len(calls) == 1 else None, **kw)
+
+        out = run_with_restarts(run, ckpt_dir=ck, max_restarts=1)
+    err = abs(out["final_loss"] - ref["final_loss"])
+    print(f"  train restart on the card: attempts from steps {calls}, {out['steps']} "
+          f"steps after the restart, final loss {out['final_loss']:.6f} against "
+          f"{ref['final_loss']:.6f} uninterrupted (|d| {err:.3g}, tolerance "
+          f"{TRAIN_RESTART_TOL})", flush=True)
+    if not (calls == [0, 8] and out["steps"] == 4 and err < TRAIN_RESTART_TOL):
+        fail(f"train restart: attempts {calls}, {out['steps']} steps, |dloss| {err}")
+
+
+def train_bf16_step0(dev_cuda) -> dict:
+    """Phase 16 (b): qwen3-4b at full width and depth, step 0 in float32
+    (TF32 off), then in bfloat16 from the same weights cast down."""
+    cfg = get_config("qwen3-4b")
+    f32 = dataclasses.replace(cfg, param_dtype="float32", act_dtype="float32")
+    batch = SyntheticData.for_model(cfg, TRAIN_FULL["batch_size"], TRAIN_FULL["seq_len"],
+                                    seed=0).batch(0)
+    out = {}
+    with no_tf32():
+        t = time.perf_counter()
+        m32 = build_model(f32, dev_cuda,
+                          generator=torch.Generator(device=dev_cuda).manual_seed(0))
+        loss, _ = m32.loss(batch)
+        loss.backward()
+        out["f32"] = (loss.item(), float(_global_norm([p.grad for p in m32.parameters()])))
+        m32.zero_grad(set_to_none=True)
+        m16 = build_model(cfg, "meta").to_empty(device=dev_cuda)
+        with torch.no_grad():
+            for p, q in zip(m32.parameters(), m16.parameters()):
+                q.copy_(p)
+        del m32
+        torch.cuda.empty_cache()
+        loss, _ = m16.loss(batch)
+        loss.backward()
+        out["bf16"] = (loss.item(), float(_global_norm([p.grad for p in m16.parameters()])))
+        del m16, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    (l32, g32), (l16, g16) = out["f32"], out["bf16"]
+    dl, dg = abs(l16 - l32) / abs(l32), abs(g16 - g32) / abs(g32)
+    print(f"  train qwen3-4b full, step 0 (batch {TRAIN_FULL['batch_size']}, sequence "
+          f"{TRAIN_FULL['seq_len']}): float32 loss {l32:.6f} grad norm {g32:.6f}; bfloat16 "
+          f"loss {l16:.6f} grad norm {g16:.6f}; relative {dl:.3g} (tolerance "
+          f"{BF16_LOSS_REL}) and {dg:.3g} (tolerance {BF16_GNORM_REL}); "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    if not (np.isfinite([l32, g32, l16, g16]).all() and dl <= BF16_LOSS_REL
+            and dg <= BF16_GNORM_REL):
+        fail(f"train qwen3-4b: bfloat16 step 0 against float32: loss {dl}, grad norm {dg}")
+    return {"loss_rel": dl, "gnorm_rel": dg}
+
+
+def step_flops(cfg, B: int, S: int) -> tuple[float, float]:
+    """``(model FLOPs of one train step, the remat recompute's)``: 2 FLOPs a
+    multiply-add over the layers' weight matrices for every token, the
+    LM head for every scored position, and the attention scores and their
+    weighting over the full (S, S) square the einsums compute; the backward
+    twice the forward; the recompute one more forward of the layers."""
+    model = build_model(cfg, "meta")
+    layer_mm = sum(p.numel() for n, p in model.named_parameters()
+                   if n.startswith("layers.") and p.dim() >= 2)
+    head = cfg.d_model * cfg.padded_vocab
+    attn = 4 * B * S * S * cfg.n_heads * cfg.head_dim * cfg.n_layers
+    layers_fwd = 2 * B * S * layer_mm + attn
+    fwd = layers_fwd + 2 * B * (S - 1) * head
+    return 3 * fwd, layers_fwd
+
+
+def train_full(dev_cuda) -> dict:
+    """Phase 16 (c): ``train_loop`` on qwen3-4b at full size in bfloat16;
+    then the same steps through ``init_train_state`` and ``make_train_step``
+    (what ``train_loop`` runs), each timed on the host's clock ending in a
+    synchronise, one warm step under the profiler; then one more loss with
+    its backward and one ``adamw_update``, timed apart by CUDA events."""
+    cfg = get_config("qwen3-4b")
+    B, S, steps = TRAIN_FULL["batch_size"], TRAIN_FULL["seq_len"], TRAIN_FULL["steps"]
+    t = time.perf_counter()
+    summary = train_launcher.train_loop(cfg, device=dev_cuda, log_every=1,
+                                        lr=TRAIN_FULL_LR, **TRAIN_FULL)
+    loop_s = time.perf_counter() - t
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (summary["steps"] == steps and len(summary["losses"]) == steps
+            and np.isfinite(summary["losses"]).all()):
+        fail(f"train qwen3-4b: train_loop ran {summary['steps']} steps, losses "
+             f"{summary['losses']}")
+
+    model = build_model(cfg, dev_cuda, generator=torch.Generator(device=dev_cuda).manual_seed(0))
+    opt_cfg = AdamWConfig(peak_lr=TRAIN_FULL_LR, warmup_steps=min(50, steps // 10 + 1),
+                          total_steps=steps)
+    data = SyntheticData.for_model(cfg, B, S, seed=0)
+    state, step = init_train_state(model), make_train_step(model, opt_cfg)
+    recs = []
+    for i in range(steps):
+        batch = data.batch(i)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        if i == TRAIN_PROFILED:
+            (state, m), prof = device_profile(lambda: step(state, batch))
+        else:
+            state, m = step(state, batch)
+        torch.cuda.synchronize()
+        recs.append({"ms": (time.perf_counter() - t) * 1e3,
+                     "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                     "peak": torch.cuda.max_memory_allocated() / 2**20})
+    bad = [i for i, r in enumerate(recs) if not np.isfinite([r["loss"], r["grad_norm"]]).all()]
+    if bad:
+        fail(f"train qwen3-4b: non-finite loss or grad_norm at steps {bad}")
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    events[0].record()
+    loss, _ = model.loss(data.batch(steps))
+    loss.backward()
+    events[1].record()
+    params = state.params
+    adamw_update(params, {n: p.grad for n, p in params.items()}, state.opt, state.step, opt_cfg)
+    events[2].record()
+    torch.cuda.synchronize()
+    fwd_bwd_ms, opt_ms = events[0].elapsed_time(events[1]), events[1].elapsed_time(events[2])
+    n_params = sum(p.numel() for p in model.parameters())
+    del model, state, step, params, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    warm = [r["ms"] for i, r in enumerate(recs) if i >= 1 and i != TRAIN_PROFILED]
+    ms = statistics.median(warm)
+    flops, recompute = step_flops(cfg, B, S)
+    rate = flops / (ms / 1e3)
+    print(f"  train qwen3-4b full ({cfg.n_layers} layers, {n_params:,} parameters, bf16, "
+          f"remat {cfg.remat}, batch {B}, sequence {S}): train_loop of {steps} steps "
+          f"{loop_s:.1f} s (build included), losses {[round(x, 4) for x in summary['losses']]}",
+          flush=True)
+    print(f"  train qwen3-4b through make_train_step: cold step {recs[0]['ms']:.1f} ms; warm "
+          f"steps median {ms:.3f} ms ({len(warm)} steps, {min(warm):.3f}-{max(warm):.3f}), "
+          f"{B * S / (ms / 1e3):.1f} tokens/s, peak {max(r['peak'] for r in recs):.1f} MiB "
+          f"allocated; one step profiled: {prof['launches']} device launches, busy "
+          f"{prof['busy_ms']:.3f} of {prof['wall_ms']:.3f} ms "
+          f"({100 * prof['busy_ms'] / prof['wall_ms']:.1f}%)", flush=True)
+    print(f"  train qwen3-4b one more step on the device's timeline (CUDA events): loss and "
+          f"backward {fwd_bwd_ms:.3f} ms, adamw_update {opt_ms:.3f} ms", flush=True)
+    if not prof["launches"]:
+        print("  profiler: no device time recorded (launches and busy share not measured)")
+    for dev_ms, count, key in prof["top"][:8]:
+        print(f"    {dev_ms:10.3f} ms  x{count:<6d} {key[:90]}")
+    print(f"  train qwen3-4b model FLOPs a step {flops:.4g} (+ remat recompute "
+          f"{recompute:.4g}): {rate / 1e12:.2f} TFLOP/s, {100 * rate / BF16_DENSE_FLOPS:.2f}% "
+          f"of the bf16 dense peak {BF16_DENSE_FLOPS / 1e12:.0f} TFLOP/s (with the recompute "
+          f"{(flops + recompute) / (ms / 1e3) / 1e12:.2f}); {card_line()}", flush=True)
+    print(f"  train qwen3-4b losses {[round(r['loss'], 4) for r in recs]}, grad norms "
+          f"{[round(r['grad_norm'], 3) for r in recs]}; first {recs[0]['loss']:.4f}, "
+          f"last {recs[-1]['loss']:.4f}", flush=True)
+    return {"ms": ms, **{k: prof[k] for k in ("launches", "busy_ms", "wall_ms")}}
+
+
+def check_training(dev_cuda) -> dict:
+    """Phase 16: the LM stack's training path on the card (no kernel of its
+    own: plain PyTorch ops)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 16 starts with {torch.cuda.memory_allocated() / 2**20:.1f} MiB "
+          f"allocated", flush=True)
+    t = time.perf_counter()
+    train_card_vs_cpu(dev_cuda)
+    train_restart(dev_cuda)
+    print(f"train card == CPU and restart took {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    train_bf16_step0(dev_cuda)
+    print(f"train bf16 step 0 took {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    out = train_full(dev_cuda)
+    print(f"train qwen3-4b full took {time.perf_counter() - t:.1f} s", flush=True)
+    return out
+
+
 def kernels_record(full: dict) -> list:
     """The kernels' JSON record: launches summed over the main paths'
     counted runs (distance-1, distance-2, the comparison, phase 12's
@@ -3359,6 +3697,9 @@ def main():
     t0 = time.perf_counter()
     check_lm(dev_cuda)
     print(f"lm took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    check_training(dev_cuda)
+    print(f"training took {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = kernels_record(full)
     print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -81,6 +81,10 @@ class CSRGraph:
     def max_degree(self) -> int:
         return int(self.degrees.max(initial=0))
 
+    @property
+    def avg_degree(self) -> float:
+        return self.m / max(self.n, 1)
+
     def neighbors(self, v: int) -> np.ndarray:
         return self.col_indices[self.row_offsets[v] : self.row_offsets[v + 1]]
 

@@ -13,7 +13,7 @@ from repro_torch.graphs.generators import (
     stencil27,
 )
 from repro_torch.graphs.rmat import RMAT_ER, RMAT_G, rmat
-from repro_torch.graphs.suite import SUITE, build_graph, serving_mix
+from repro_torch.graphs.suite import SUITE, build_graph, build_suite, serving_mix
 
 __all__ = [
     "RMAT_ER",
@@ -31,5 +31,6 @@ __all__ = [
     "stencil27",
     "SUITE",
     "build_graph",
+    "build_suite",
     "serving_mix",
 ]

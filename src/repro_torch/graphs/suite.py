@@ -28,7 +28,7 @@ from repro_torch.core.csr import CSRGraph
 from repro_torch.graphs import generators as G
 from repro_torch.graphs.rmat import RMAT_ER, RMAT_G, rmat
 
-__all__ = ["SUITE", "build_graph", "serving_mix"]
+__all__ = ["SUITE", "build_graph", "build_suite", "serving_mix"]
 
 # name -> callable(scale) -> CSRGraph.  Nominal n at scale=1.0 is ~64k-128k
 # vertices per graph (the whole suite colors in seconds on one CPU core).
@@ -52,6 +52,10 @@ SUITE: dict[str, Callable[[float], CSRGraph]] = {
 def build_graph(name: str, scale: float = 1.0) -> CSRGraph:
     return SUITE[name](scale)
 
+
+def build_suite(scale: float = 1.0, names: list[str] | None = None):
+    names = names or list(SUITE)
+    return {name: build_graph(name, scale) for name in names}
 
 
 def serving_mix(B: int, scale: float = 1.0) -> list[CSRGraph]:

@@ -4,7 +4,9 @@
 their layers on a leading axis (``params["segments"][i]["sub{j}"]``).  The
 port holds one ``Block`` per layer with the same leaf names and the same
 ``(in, out)`` layout, so carrying a tree is unstacking it in
-``plan_segments`` order and copying each leaf, with no transpose.
+``plan_segments`` order and copying each leaf, with no transpose.  A train
+state (``{"params", "opt": {"m", "v"}, "step"}``) carries the same way, its
+moments unstacked like the parameters.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ import torch
 
 from repro_torch.models.transformer import plan_segments
 
-__all__ = ["unstack_params", "load_repro_params"]
+__all__ = ["unstack_params", "load_repro_params", "load_repro_train_state"]
 
 
 def _flatten(prefix: str, node, out: dict):
@@ -62,21 +64,49 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def _matched(cfg, tree: dict, targets: dict, what: str) -> dict:
+    """``tree`` unstacked, checked name for name and shape for shape
+    against ``targets`` (``{port name: tensor}``)."""
+    flat = unstack_params(cfg, tree)
+    missing, extra = sorted(targets.keys() - flat.keys()), sorted(flat.keys() - targets.keys())
+    if missing or extra:
+        raise ValueError(f"{cfg.name}: {what} missing from the tree "
+                         f"{missing}, not in the model {extra}")
+    for name, w in targets.items():
+        if tuple(flat[name].shape) != tuple(w.shape):
+            raise ValueError(f"{cfg.name}: {what} {name} has shape "
+                             f"{tuple(flat[name].shape)}, the model {tuple(w.shape)}")
+    return flat
+
+
 @torch.no_grad()
 def load_repro_params(model, tree: dict):
     """Copy ``repro``'s parameters (nested dicts of numpy arrays, e.g.
     ``jax.tree.map(np.asarray, params)``) into ``model`` in place.  Raises
     ``ValueError`` on any missing, extra or mis-shaped leaf."""
-    flat = unstack_params(model.cfg, tree)
     params = dict(model.named_parameters())
-    missing, extra = sorted(params.keys() - flat.keys()), sorted(flat.keys() - params.keys())
-    if missing or extra:
-        raise ValueError(f"{model.cfg.name}: leaves missing from the tree "
-                         f"{missing}, not in the model {extra}")
-    for name, w in params.items():
-        if tuple(flat[name].shape) != tuple(w.shape):
-            raise ValueError(f"{model.cfg.name}: {name} has shape "
-                             f"{tuple(flat[name].shape)}, the model {tuple(w.shape)}")
+    flat = _matched(model.cfg, tree, params, "leaves")
     for name, w in params.items():
         w.copy_(_tensor(flat[name]))
     return model
+
+
+@torch.no_grad()
+def load_repro_train_state(state, repro_state: dict):
+    """Copy ``repro``'s train state ``{"params", "opt": {"m", "v"},
+    "step"}`` (numpy leaves) into the port's ``TrainState`` in place: the
+    parameters, both moments (unstacked like the parameters) and the step.
+    Every tree is checked before anything is copied; any missing, extra or
+    mis-shaped leaf raises ``ValueError``."""
+    cfg = state.model.cfg
+    params = state.params
+    flat_p = _matched(cfg, repro_state["params"], params, "leaves")
+    moments = {k: _matched(cfg, repro_state["opt"][k], state.opt[k], f"opt/{k} leaves")
+               for k in ("m", "v")}
+    for name, w in params.items():
+        w.copy_(_tensor(flat_p[name]))
+    for k, flat in moments.items():
+        for name, t in state.opt[k].items():
+            t.copy_(_tensor(flat[name]))
+    state.step = int(repro_state["step"])
+    return state

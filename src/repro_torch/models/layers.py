@@ -8,7 +8,8 @@ Conventions, as in ``repro``:
 * activations run in ``cfg.act_dtype``; norms, RoPE and softmax compute in
   float32 and cast back exactly where ``repro`` does;
 * attention is q-chunked above ``cfg.attn_q_chunk`` (when the sequence is a
-  multiple of it), so a long prompt never holds an ``(S, S)`` score block.
+  multiple of it), so a long prompt never holds an ``(S, S)`` score block;
+  with ``chunk_remat`` the backward recomputes each chunk's scores.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 __all__ = [
     "DTYPES",
@@ -154,7 +156,11 @@ def attention(
     window: int | None = None,
     q_chunk: int = 1024,
     scale: float | None = None,
+    chunk_remat: bool = False,
 ):
+    """``chunk_remat`` (with gradients on): recompute each q-chunk's float32
+    score block in the backward instead of saving it, as ``repro``'s
+    ``jax.checkpoint`` of its chunk loop."""
     B, Sq, Hq, D = q.shape
     G = Hq // k.shape[2]
     scale = scale if scale is not None else D ** -0.5
@@ -163,9 +169,11 @@ def attention(
         v = v.repeat_interleave(G, dim=2)
     if Sq <= q_chunk or Sq % q_chunk != 0:
         return _attend_block(q, k, v, q_pos, k_pos, causal, window, scale)
+    block = (_attend_block if not (chunk_remat and torch.is_grad_enabled())
+             else lambda *a: checkpoint(_attend_block, *a, use_reentrant=False))
     return torch.cat([
-        _attend_block(q[:, s:s + q_chunk], k, v, q_pos[s:s + q_chunk], k_pos,
-                      causal, window, scale)
+        block(q[:, s:s + q_chunk], k, v, q_pos[s:s + q_chunk], k_pos,
+              causal, window, scale)
         for s in range(0, Sq, q_chunk)], dim=1)
 
 

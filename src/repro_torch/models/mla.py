@@ -78,7 +78,7 @@ def mla_attention(p, x, positions, cfg):
         q, k, v,
         q_pos=positions, k_pos=positions,
         causal=cfg.causal, window=cfg.window, q_chunk=cfg.attn_q_chunk,
-        scale=(dn + dr) ** -0.5,
+        scale=(dn + dr) ** -0.5, chunk_remat=cfg.attn_chunk_remat,
     )
     out = out.reshape(B, S, H * dv) @ p.wo.to(x.dtype)
     return out, (c_kv, k_rope)

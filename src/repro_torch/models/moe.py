@@ -11,13 +11,16 @@ port of ``repro.models.moe``).
 * ``moe_group="flat"`` routes chunks of ``moe_chunk`` flattened tokens (the
   zero pad tokens of the last chunk are routed too and take slots);
   ``"seq"`` routes each batch row in groups of ``moe_group_seq`` positions;
-* shared experts (DeepSeek-V2) run densely on every token.
+* shared experts (DeepSeek-V2) run densely on every token;
+* ``moe_remat`` (with gradients on): each chunk's dispatch is recomputed in
+  the backward, as ``repro``'s ``jax.checkpoint`` of its chunk loop.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import MLP, dense_init_, mlp_apply, new_param
 
@@ -166,13 +169,20 @@ def moe_apply(p, x, cfg):
     B, S, d = x.shape
     lb = z = torch.zeros((), dtype=torch.float32, device=x.device)
     ys = []
+    remat = cfg.moe_remat and torch.is_grad_enabled()
+
+    def run(chunk_fn, xc):
+        if remat:
+            return checkpoint(chunk_fn, p, xc, cfg, use_reentrant=False)
+        return chunk_fn(p, xc, cfg)
+
     if cfg.moe_group == "seq":
         Sc = max(1, min(cfg.moe_group_seq, S))
         n_chunks = -(-S // Sc)
         pad = n_chunks * Sc - S
         xg = F.pad(x, (0, 0, 0, pad)) if pad else x
         for c in range(n_chunks):
-            yc, lb_c, z_c = _grouped_chunk_moe(p, xg[:, c * Sc:(c + 1) * Sc], cfg)
+            yc, lb_c, z_c = run(_grouped_chunk_moe, xg[:, c * Sc:(c + 1) * Sc])
             lb, z = lb + lb_c, z + z_c
             ys.append(yc)
         y = torch.cat(ys, dim=1)[:, :S]
@@ -185,7 +195,7 @@ def moe_apply(p, x, cfg):
         if pad:
             xf = torch.cat([xf, xf.new_zeros((pad, d))])
         for c in range(n_chunks):
-            yc, lb_c, z_c = _chunk_moe(p, xf[c * chunk:(c + 1) * chunk], cfg)
+            yc, lb_c, z_c = run(_chunk_moe, xf[c * chunk:(c + 1) * chunk])
             lb, z = lb + lb_c, z + z_c
             ys.append(yc)
         y = torch.cat(ys)[:N].reshape(B, S, d)

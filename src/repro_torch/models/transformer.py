@@ -9,7 +9,9 @@ run in a Python loop.
 
 Modes: ``forward``/``train`` (full sequence, no cache), ``prefill`` (full
 sequence, fills per-layer caches), ``decode`` (one token, reads and writes
-the caches in place).
+the caches in place).  With ``cfg.remat``, mode ``train`` recomputes each
+``Block`` in the backward pass (``torch.utils.checkpoint``), as ``repro``
+wraps each scanned period in ``jax.checkpoint``.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import dataclasses
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import rwkv6
@@ -194,7 +197,7 @@ def _attn_block(p, x, cfg, positions, mode, cache, pos):
         q, k, v = _attn_qkv(p, x, positions, cfg)
         out = attention(q, k, v, q_pos=positions, k_pos=positions,
                         causal=cfg.causal, window=cfg.window,
-                        q_chunk=cfg.attn_q_chunk)
+                        q_chunk=cfg.attn_q_chunk, chunk_remat=cfg.attn_chunk_remat)
         y = linear(out.reshape(B, S, -1), p.wo)
         if mode == "prefill":
             if cfg.window and cfg.window < S:          # ring buffer: last Wd keys
@@ -293,11 +296,19 @@ def _block_apply(p, x, cfg, positions, mode, cache, pos):
 def apply_stack(layers, x, cfg, positions, mode, caches=None, pos=None):
     """Run every layer in order.  Returns (x, {"lb": ..., "z": ...}); in
     ``prefill`` and ``decode`` mode ``caches`` (one dict a layer) is updated
-    in place."""
+    in place.  Mode ``train`` takes no cache, so a recomputed block never
+    reads a tensor written since its forward."""
+    if mode == "train" and caches is not None:
+        raise ValueError("mode 'train' writes no cache; got caches")
+    remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
     lb = z = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, layer in enumerate(layers):
         c = caches[i] if caches is not None else None
-        x, aux = _block_apply(layer, x, cfg, positions, mode, c, pos)
+        if remat:
+            x, aux = checkpoint(_block_apply, layer, x, cfg, positions, mode, c, pos,
+                                use_reentrant=False)
+        else:
+            x, aux = _block_apply(layer, x, cfg, positions, mode, c, pos)
         if aux is not None:
             lb, z = lb + aux[0], z + aux[1]
     return x, {"lb": lb, "z": z}

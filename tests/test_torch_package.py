@@ -1338,3 +1338,66 @@ def test_cuda_serve_batch(cuda_device, no_tf32):
     a = generate(card, prompts, prompt_len=8, gen=6)["generated"]
     b = generate(cpu, prompts, prompt_len=8, gen=6)["generated"]
     np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the LM stack's training path on the card (no kernel of its own)
+# ---------------------------------------------------------------------------
+
+TRAIN_TOL = 1e-4   # float32 loss and grad_norm, card against CPU (TF32 off)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-4b", "mixtral-8x22b"])
+def test_cuda_train_step_matches_cpu(cuda_device, no_tf32, arch):
+    """A reduced config's AdamW train step on the card against the CPU
+    from the same weights: loss and grad_norm within 1e-4 relative, the
+    parameters within AdamW's allowance (a sign flip moves one by 2 lr)."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.training import (AdamWConfig, SyntheticData, init_train_state,
+                                      make_train_step)
+
+    cfg = get_config(arch).reduced()
+    cpu = build_model(cfg, "cpu", generator=torch.Generator().manual_seed(6))
+    card = copy.deepcopy(cpu).to(cuda_device)
+    opt = AdamWConfig(peak_lr=1e-3, warmup_steps=0, total_steps=2)
+    batches = [SyntheticData.for_model(cfg, 2, 64, seed=6).batch(i) for i in range(2)]
+    states = [init_train_state(m) for m in (cpu, card)]
+    steps = [make_train_step(m, opt) for m in (cpu, card)]
+    for b in batches:
+        _, want = steps[0](states[0], b)
+        _, got = steps[1](states[1], b)
+        assert got["loss"].device.type == "cuda"
+        for key in ("loss", "grad_norm"):
+            assert got[key].item() == pytest.approx(want[key].item(), rel=TRAIN_TOL)
+    assert states[1].opt["m"]["embed"].device.type == "cuda"
+    assert all(p.grad is None for p in card.parameters())
+    for a, b in zip(card.parameters(), cpu.parameters()):
+        assert (a.detach().cpu() - b.detach()).abs().max() <= 2 * 1e-3 * len(batches)
+
+
+@pytest.mark.cuda
+def test_cuda_train_crash_and_resume(cuda_device, tmp_path):
+    """``train_loop`` with no ``device=`` runs on the card; a run that dies
+    at step 8 and is resumed by ``run_with_restarts`` ends within 1e-3 of
+    the uninterrupted run's loss."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.fault_tolerance import run_with_restarts
+    from repro_torch.launch.train import train_loop
+
+    cfg = get_config("qwen3-4b").reduced()
+    kw = dict(steps=12, batch_size=4, seq_len=16, lr=1e-3, log_every=4, seed=3)
+    ref = train_loop(cfg, ckpt_dir=str(tmp_path / "ref"), ckpt_every=100, **kw)
+    ck, starts = str(tmp_path / "ck"), []
+
+    def run(start):
+        starts.append(start)
+        return train_loop(cfg, ckpt_dir=ck, ckpt_every=4, resume=start > 0,
+                          fail_at_step=8 if len(starts) == 1 else None, **kw)
+
+    out = run_with_restarts(run, ckpt_dir=ck, max_restarts=1)
+    assert starts == [0, 8] and out["steps"] == 4
+    assert abs(out["final_loss"] - ref["final_loss"]) < 1e-3
