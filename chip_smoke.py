@@ -195,6 +195,22 @@ Phases, in order; any failure ends the run with a non-zero exit code:
              MiB, one step's launches and busy share under the profiler,
              the model FLOP rate against the bf16 dense peak, and the loss
              with its backward and ``adamw_update`` timed apart.
+17. mesh   — the LM stack's mesh half (``distributed/sharding.py``,
+             ``launch/dryrun.py``, ``launch/op_analysis.py``; ``DeviceMesh``
+             and ``DTensor``, no kernel of its own) on an NCCL group of
+             world size 1 and a ("data", "model") mesh of shape (1, 1):
+             (a) ``train_loop(mesh=)`` on qwen3-4b at full size in bfloat16
+             with phase 16's settings, step 0's loss and gradient norm
+             within 1e-4 of phase 16's ``train_loop``, every step finite;
+             steps 0-3 through ``make_train_step`` on a placed state, the
+             warm median ms beside phase 16's; (b) a checkpoint at step 4,
+             ``reshard_state`` onto a freshly built (1, 1) mesh (every leaf
+             a ``DTensor`` of the resolver's placement), steps 4-7 within
+             1e-3 of (a)'s losses; (c) the dry run of that step
+             (``op_analysis`` on meta under a fake group, in a subprocess):
+             per-device FLOPs and argument plus temporary bytes within 20%
+             of phase 16's model FLOPs plus recompute and its peak less
+             what earlier phases hold.
 
 The line before the last is the kernels' JSON record, and the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
@@ -3563,7 +3579,10 @@ def train_full(dev_cuda) -> dict:
     print(f"  train qwen3-4b losses {[round(r['loss'], 4) for r in recs]}, grad norms "
           f"{[round(r['grad_norm'], 3) for r in recs]}; first {recs[0]['loss']:.4f}, "
           f"last {recs[-1]['loss']:.4f}", flush=True)
-    return {"ms": ms, **{k: prof[k] for k in ("launches", "busy_ms", "wall_ms")}}
+    return {"ms": ms, **{k: prof[k] for k in ("launches", "busy_ms", "wall_ms")},
+            "losses": summary["losses"], "grad_norms": summary["grad_norms"],
+            "flops": flops, "recompute": recompute,
+            "peak_mib": max(r["peak"] for r in recs)}
 
 
 def check_training(dev_cuda) -> dict:
@@ -3571,8 +3590,8 @@ def check_training(dev_cuda) -> dict:
     own: plain PyTorch ops)."""
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"phase 16 starts with {torch.cuda.memory_allocated() / 2**20:.1f} MiB "
-          f"allocated", flush=True)
+    held = torch.cuda.memory_allocated() / 2**20
+    print(f"phase 16 starts with {held:.1f} MiB allocated", flush=True)
     t = time.perf_counter()
     train_card_vs_cpu(dev_cuda)
     train_restart(dev_cuda)
@@ -3583,7 +3602,195 @@ def check_training(dev_cuda) -> dict:
     t = time.perf_counter()
     out = train_full(dev_cuda)
     print(f"train qwen3-4b full took {time.perf_counter() - t:.1f} s", flush=True)
+    return {**out, "held_mib": held}
+
+
+# --------------------------------------------------------------------------
+# phase 17: the LM stack's mesh half (DeviceMesh, DTensor, the dry run)
+# --------------------------------------------------------------------------
+
+MESH_STEP0_TOL = 1e-4    # phase 17 (a) against phase 16's train_loop, step 0
+MESH_RESUME_AT = 4       # phase 17 (b): the checkpoint's step
+DRYRUN_TOL = 0.20        # phase 17 (c): the dry run against phase 16's readings
+# the dry run of phase 16's step, on meta under a fake group of one (its own
+# process: a process group is global to a process)
+DRYRUN_PROBE = """
+import json, sys
+sys.path.insert(0, "src")
+from repro_torch.launch.dryrun import make_mesh, run_cell
+mesh = make_mesh((1, 1), ("data", "model"))
+rec = run_cell("qwen3-4b", "train_4k", "single", mesh=mesh,
+               info=dict(seq={seq}, batch={batch}, mode="train"))
+rec.pop("traceback", None)
+print(json.dumps(rec))
+"""
+
+
+def nccl_group(dev_cuda):
+    """An NCCL process group of world size 1 on this card."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1, device_id=dev_cuda)
+
+
+def mesh_steps(state, opt_cfg, data, first: int, last: int, timed: bool) -> list:
+    """Steps ``first``..``last - 1`` of ``make_train_step`` on a placed
+    state, each batch placed by ``batch_shardings``; ``(ms, loss,
+    grad_norm)`` each, the ms on the host's clock ending in a synchronise."""
+    from repro_torch.distributed.sharding import batch_shardings, distribute
+
+    leaf = next(iter(state.params.values()))
+    mesh, dev = leaf.device_mesh, leaf.device
+    step = make_train_step(state.model, opt_cfg)
+    sh = batch_shardings(data.batch(first), mesh)
+    out = []
+    for i in range(first, last):
+        batch = distribute({k: torch.as_tensor(v, device=dev) for k, v in data.batch(i).items()},
+                           sh)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        loss, gnorm = (float(m[k].full_tensor()) for k in ("loss", "grad_norm"))
+        torch.cuda.synchronize()
+        out.append(((time.perf_counter() - t) * 1e3 if timed else None, loss, gnorm))
     return out
+
+
+def check_mesh(dev_cuda, phase16: dict) -> dict:
+    """Phase 17: the LM stack's mesh half on a one-card mesh (an NCCL group
+    of world size 1, a ("data", "model") mesh of shape (1, 1)): (a)
+    ``train_loop(mesh=)`` on qwen3-4b at full size in bfloat16 with phase
+    16's settings, step 0 against phase 16's ``train_loop``; then its steps
+    0-3 through ``make_train_step`` on a placed state, timed, and a
+    checkpoint at step 4; (b) ``reshard_state`` of that checkpoint onto a
+    freshly built (1, 1) mesh (every leaf a ``DTensor`` of the resolver's
+    placement), then steps 4-7 against (a)'s; (c) the dry run of the same
+    step (``op_analysis`` on meta, a subprocess started after (a)'s timed
+    steps) against phase 16's model FLOPs and peak memory."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.fault_tolerance import reshard_state
+    from repro_torch.distributed.sharding import place_state, state_shardings
+    from repro_torch.training.checkpoint import save_checkpoint
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 17 starts with {torch.cuda.memory_allocated() / 2**20:.1f} MiB "
+          f"allocated", flush=True)
+    cfg = get_config("qwen3-4b")
+    B, S, steps = TRAIN_FULL["batch_size"], TRAIN_FULL["seq_len"], TRAIN_FULL["steps"]
+    probe = None
+    nccl_group(dev_cuda)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        t = time.perf_counter()
+        summary = train_launcher.train_loop(cfg, device=dev_cuda, mesh=mesh, log_every=1,
+                                            lr=TRAIN_FULL_LR, **TRAIN_FULL)
+        loop_s = time.perf_counter() - t
+        gc.collect()
+        torch.cuda.empty_cache()
+        losses, gnorms = summary["losses"], summary["grad_norms"]
+        ref_l, ref_g = phase16["losses"][0], phase16["grad_norms"][0]
+        dl, dg = abs(losses[0] - ref_l) / abs(ref_l), abs(gnorms[0] - ref_g) / abs(ref_g)
+        print(f"  mesh train_loop qwen3-4b full on a (1, 1) mesh, {steps} steps in "
+              f"{loop_s:.1f} s (build included): losses {[round(x, 4) for x in losses]}, "
+              f"grad norms {[round(x, 3) for x in gnorms]}; step 0 against phase 16's "
+              f"train_loop: loss {losses[0]:.6f} vs {ref_l:.6f} (relative {dl:.3g}), grad "
+              f"norm {gnorms[0]:.6f} vs {ref_g:.6f} (relative {dg:.3g}; tolerance "
+              f"{MESH_STEP0_TOL})", flush=True)
+        if not (len(losses) == steps and np.isfinite(losses + gnorms).all()
+                and dl <= MESH_STEP0_TOL and dg <= MESH_STEP0_TOL):
+            fail(f"mesh train_loop: step 0 against phase 16: loss {dl}, grad norm {dg}; "
+                 f"losses {losses}")
+
+        opt_cfg = AdamWConfig(peak_lr=TRAIN_FULL_LR, warmup_steps=min(50, steps // 10 + 1),
+                              total_steps=steps)
+        data = SyntheticData.for_model(cfg, B, S, seed=0)
+        model = build_model(cfg, dev_cuda, generator=torch.Generator(device=dev_cuda).manual_seed(0))
+        state = init_train_state(model)
+        place_state(state, state_shardings(state, mesh))
+        torch.cuda.reset_peak_memory_stats()
+        first = mesh_steps(state, opt_cfg, data, 0, MESH_RESUME_AT, timed=True)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        ms = statistics.median(r[0] for r in first[1:])
+        print(f"  mesh steps 0-{MESH_RESUME_AT - 1} through make_train_step: cold "
+              f"{first[0][0]:.1f} ms, warm median {ms:.3f} ms against phase 16's "
+              f"{phase16['ms']:.3f} ms without a mesh (x{ms / phase16['ms']:.3f}: the host "
+              f"cost of DTensor dispatch), peak {peak:.1f} MiB; {card_line()}", flush=True)
+        # (c)'s trace takes the host's cores for 15-25 s: started after the
+        # timed steps, beside the checkpoint's I/O
+        probe = subprocess.Popen([sys.executable, "-c", DRYRUN_PROBE.format(seq=S, batch=B)],
+                                 cwd=str(Path(__file__).resolve().parent),
+                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        with tempfile.TemporaryDirectory() as tmp:
+            t = time.perf_counter()
+            save_checkpoint(tmp, MESH_RESUME_AT, state)
+            save_s = time.perf_counter() - t
+            del model, state
+            gc.collect()
+            torch.cuda.empty_cache()
+            fresh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+            t = time.perf_counter()
+            like = init_train_state(build_model(cfg, "meta"))
+            state = reshard_state(tmp, MESH_RESUME_AT, like, fresh)
+            restore_s = time.perf_counter() - t
+        want = state_shardings(state, fresh)
+        leaves = [(p, want["params"][n]) for n, p in state.params.items()] + [
+            (v, want["opt"][k][n]) for k in ("m", "v") for n, v in state.opt[k].items()]
+        misplaced = [i for i, (v, sh) in enumerate(leaves)
+                     if not (isinstance(v, DTensor) and v.device_mesh == fresh
+                             and tuple(v.placements) == sh.placements
+                             and v.device.type == fresh.device_type)]
+        resumed = mesh_steps(state, opt_cfg, data, MESH_RESUME_AT, steps, timed=False)
+        err = max(abs(r[1] - want_l) for r, want_l in zip(resumed, losses[MESH_RESUME_AT:]))
+        print(f"  mesh checkpoint at step {MESH_RESUME_AT}: saved in {save_s:.1f} s, "
+              f"reshard_state onto a fresh (1, 1) mesh in {restore_s:.1f} s, {len(leaves)} "
+              f"leaves, {len(misplaced)} not DTensors of the resolver's placement; steps "
+              f"{MESH_RESUME_AT}-{steps - 1} losses {[round(r[1], 4) for r in resumed]} "
+              f"against (a)'s {[round(x, 4) for x in losses[MESH_RESUME_AT:]]} "
+              f"(|d| {err:.3g}, tolerance {TRAIN_RESTART_TOL})", flush=True)
+        if misplaced or not err <= TRAIN_RESTART_TOL:
+            fail(f"mesh reshard_state: {len(misplaced)} leaves misplaced, |dloss| {err}")
+        del state, like
+        gc.collect()
+        torch.cuda.empty_cache()
+    except BaseException:
+        if probe is not None:
+            probe.kill()
+        raise
+    finally:
+        dist.destroy_process_group()
+
+    stdout, stderr = probe.communicate(timeout=600)
+    if probe.returncode != 0:
+        fail(f"mesh dry run: exit {probe.returncode}: {stderr[-2000:]}")
+    rec = json.loads(stdout.strip().splitlines()[-1])
+    if not rec.get("ok"):
+        fail(f"mesh dry run: {rec.get('error')}")
+    flops, mem = rec["analysis"]["flops"], rec["memory"]
+    dry_mib = (mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]) / 2**20
+    card_flops = phase16["flops"] + phase16["recompute"]
+    card_mib = phase16["peak_mib"] - phase16["held_mib"]
+    df, dm = abs(flops / card_flops - 1), abs(dry_mib / card_mib - 1)
+    print(f"  mesh dry run of phase 16's step (op_analysis on meta, trace "
+          f"{rec['trace_s']} s): per-device FLOPs {flops:.4g} against phase 16's model "
+          f"FLOPs plus recompute {card_flops:.4g} (relative {df:.3g}); arguments "
+          f"{mem['argument_size_in_bytes'] / 2**20:.1f} MiB + temporaries "
+          f"{mem['temp_size_in_bytes'] / 2**20:.1f} MiB = {dry_mib:.1f} MiB against phase "
+          f"16's peak {phase16['peak_mib']:.1f} MiB less {phase16['held_mib']:.1f} MiB held "
+          f"by earlier phases = {card_mib:.1f} MiB (relative {dm:.3g}; tolerance "
+          f"{DRYRUN_TOL})", flush=True)
+    if not (df <= DRYRUN_TOL and dm <= DRYRUN_TOL):
+        fail(f"mesh dry run against the card: FLOPs {df}, memory {dm}")
+    return {"ms": ms, "flops": flops, "dry_mib": dry_mib}
 
 
 def kernels_record(full: dict) -> list:
@@ -3698,8 +3905,11 @@ def main():
     check_lm(dev_cuda)
     print(f"lm took {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    check_training(dev_cuda)
+    training = check_training(dev_cuda)
     print(f"training took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    check_mesh(dev_cuda, training)
+    print(f"mesh took {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = kernels_record(full)
     print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -13,7 +13,10 @@ Conventions, as in ``repro``:
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
+import sys
 
 import torch
 import torch.nn.functional as F
@@ -31,9 +34,133 @@ __all__ = [
     "rope_apply",
     "attention",
     "mlp_apply",
+    "use_sharding_mesh",
+    "sharding_mesh",
+    "is_dtensor",
+    "heads_spec",
+    "shard_heads",
+    "split_heads",
+    "cache_write",
+    "local_product",
+    "reduce_partial",
+    "pad_seq",
+    "contiguous_stride",
 ]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# The mesh of the activation-sharding constraints (``shard_heads``, the
+# residual constrainer).  Set by the ``Model`` entry points; None on runs
+# without a mesh, where every constraint is the identity.
+_MESH_CTX: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh",
+                                                           default=None)
+
+
+@contextlib.contextmanager
+def use_sharding_mesh(mesh):
+    tok = _MESH_CTX.set(mesh)
+    try:
+        yield
+    finally:
+        _MESH_CTX.reset(tok)
+
+
+def sharding_mesh():
+    """The mesh ``use_sharding_mesh`` set, or None."""
+    return _MESH_CTX.get()
+
+
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a ``DTensor`` (none exists before
+    ``torch.distributed.tensor`` is imported)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
+
+
+def constrain(x, spec, mesh):
+    """``x`` redistributed to ``spec`` (a ``PartitionSpec``) on ``mesh``:
+    the counterpart of ``with_sharding_constraint``."""
+    from repro_torch.distributed.sharding import NamedSharding
+
+    return x.redistribute(mesh, NamedSharding(mesh, spec).placements)
+
+
+def heads_spec(shape, mesh):
+    """``repro``'s spec for (B, S, H, D): batch over (pod, data), else the
+    sequence; heads over "model", else D."""
+    from repro_torch.distributed.sharding import PartitionSpec, mesh_axes
+
+    sizes = mesh_axes(mesh)
+    daxes = tuple(a for a in ("pod", "data") if a in sizes)
+    dsize = math.prod(sizes[a] for a in daxes)
+    msize = sizes.get("model", 1)
+    B, S, H, D = shape
+    spec: list = [None, None, None, None]
+    if B % dsize == 0 and B > 1:
+        spec[0] = daxes
+    elif S % dsize == 0 and S >= dsize:
+        spec[1] = daxes
+    if H % msize == 0 and H >= msize:
+        spec[2] = "model"
+    elif D % msize == 0 and D >= msize:
+        spec[3] = "model"
+    return PartitionSpec(*spec)
+
+
+def shard_heads(x):
+    """Constrain (B, S, H, D) to ``heads_spec``; the identity without a
+    mesh or on a plain tensor."""
+    mesh = _MESH_CTX.get()
+    if mesh is None or x.ndim != 4 or not is_dtensor(x):
+        return x
+    return constrain(x, heads_spec(x.shape, mesh), mesh)
+
+
+def split_heads(x, H: int, D: int):
+    """(B, S, H*D) -> (B, S, H, D), then ``shard_heads``.  On a mesh the
+    flat dim keeps "model" into the view only where the heads take it, so
+    no view splits a dim sharded unevenly (DTensor refuses that; XLA pads
+    it silently)."""
+    B, S = x.shape[:2]
+    mesh = _MESH_CTX.get()
+    if mesh is None or not is_dtensor(x):
+        return x.reshape(B, S, H, D)
+    spec = heads_spec((B, S, H, D), mesh)
+    x = constrain(x, spec[:3], mesh)
+    return constrain(x.reshape(B, S, H, D), spec, mesh)
+
+
+def cache_write(cache, start: int, value):
+    """``cache[:, start:start + n] = value`` in place (n = ``value.shape[1]``,
+    cast to the cache's dtype).  On a ``DTensor`` cache whose time dim is
+    split, a write that covers the whole dim is a ``redistribute`` of the
+    value to the cache's placement; any other write goes into the local
+    shard of the rank that holds those positions, from the value gathered
+    along time (a view of one position of a split dim cannot be written
+    through: ``DTensor`` would write into a gathered copy)."""
+    value = value.to(cache.dtype)
+    n = value.shape[1]
+    if not is_dtensor(cache):
+        cache[:, start:start + n] = value
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, placements = cache.device_mesh, cache.placements
+    T = cache.shape[1]
+    if start == 0 and n == T:
+        cache.copy_(value.redistribute(mesh, placements))
+        return
+    local_c = cache.to_local()
+    local_v = value.redistribute(
+        mesh, [Replicate() if p == Shard(1) else p for p in placements]).to_local()
+    coord, lo, span = mesh.get_coordinate(), 0, T
+    for i, p in enumerate(placements):     # mesh order: the outer split first
+        if p == Shard(1):
+            span //= mesh.size(i)
+            lo += coord[i] * span
+    a, b = max(start, lo), min(start + n, lo + local_c.shape[1])
+    if a < b:
+        local_c[:, a - lo:b - lo] = local_v[:, a - start:b - start]
 
 
 # ---------------------------------------------------------------------------
@@ -60,7 +187,106 @@ def dense_init_(w: torch.Tensor, generator: torch.Generator,
 
 
 def linear(x, w):
-    return x @ w.to(x.dtype)
+    """``x @ w`` (w cast to x's dtype).  On ``DTensor``s, ``local_product``."""
+    w = w.to(x.dtype)
+    if is_dtensor(x) and is_dtensor(w):
+        return local_product(x, w)
+    return x @ w
+
+
+def local_product(x, w, e: int | None = None):
+    """x (..., a) @ w (a, b) on ``DTensor``s, on the local shards; with
+    ``e``, w is (E, a, b) and x's dim ``e`` its E (a product per expert).
+    Mesh dim by mesh dim:
+
+    * x split on E: w split on E alike;
+    * x split on another leading dim: w gathered there (the FSDP
+      all-gather), the output split as x, w's local gradient a partial sum;
+    * x split on ``a``: w split on ``a`` too, the output a partial sum,
+      reduced at once (``reduce_partial`` over ``b``);
+    * x whole: w keeps a split of ``b`` (the output split on ``b``, x's
+      local gradient a partial sum) and is gathered otherwise; x is made
+      whole first where it is partial, strided, or split on a leading dim
+      after the first where w splits ``b``.
+
+    ``DTensor``'s own ``matmul`` or ``einsum`` folds the leading dims of x
+    into one before its ``mm``/``bmm``, a view torch 2.11 refuses when a
+    leading dim after the first is split: the sequence-parallel residual
+    (batch over the data axes, sequence over "model") reaches every
+    projection so, and the dispatched tokens (batch, experts) every expert
+    product."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh, a = x.device_mesh, x.ndim - 1
+    wa, wb = w.ndim - 2, w.ndim - 1
+
+    def kept(p, pw):
+        # x is gathered on a mesh dim where it holds a partial sum or a
+        # strided split (``DTensor``'s ``_StridedShard``, left by folding a
+        # split head dim into its neighbour: no block of w's rows), and
+        # where a split sequence (any leading dim after the first but E)
+        # meets a w split on b: the column-parallel projection after
+        # sequence parallelism (Megatron's, and XLA's for repro), so what
+        # follows stays split over its features (heads), not the sequence
+        if p.is_replicate():
+            return True
+        return type(p) is Shard and not (0 < p.dim < a and p.dim != e and pw == Shard(wb))
+
+    xp = [p if kept(p, pw) else Replicate() for p, pw in zip(x.placements, w.placements)]
+    rules = []    # per mesh dim: (w's placement, output's, x's gradient's, w's gradient's)
+    for px, pw in zip(xp, w.placements):
+        if px.is_shard() and px.dim == e:
+            rules.append((Shard(0), px, px, Shard(0)))
+        elif px.is_shard() and px.dim != a:
+            rules.append((Replicate(), px, px, Partial()))
+        elif px.is_shard():
+            rules.append((Shard(wa), Partial(), px, Shard(wa)))
+        elif pw == Shard(wb):
+            rules.append((pw, Shard(a), Partial(), pw))
+        else:
+            rules.append((Replicate(), px, px, Replicate()))
+    wp, out, x_grad, w_grad = (list(r) for r in zip(*rules))
+    x, w = x.redistribute(mesh, xp), w.redistribute(mesh, wp)
+    y = torch.matmul(x.to_local(grad_placements=x_grad), w.to_local(grad_placements=w_grad))
+    shape = (*x.shape[:-1], w.shape[-1])
+    y = DTensor.from_local(y, mesh, out, run_check=False, shape=torch.Size(shape),
+                           stride=contiguous_stride(shape))
+    return reduce_partial(y, a)
+
+
+def pad_seq(t, n: int, value=0):
+    """``t`` (B, S, ...) with ``n`` steps of ``value`` after its last along
+    dim 1: ``F.pad`` on a plain tensor; on a ``DTensor`` a ``cat`` with a
+    filled tensor of its kind (torch 2.11's ``DTensor`` fails to plan the
+    redistribution ``F.pad`` asks for: an ``IndexError``)."""
+    if not n:
+        return t
+    if not is_dtensor(t):
+        return F.pad(t, (0, 0) * (t.ndim - 2) + (0, n), value=value)
+    return torch.cat([t, t.new_full((t.shape[0], n, *t.shape[2:]), value)], dim=1)
+
+
+def reduce_partial(t, dim: int):
+    """A ``DTensor``'s partial sums reduced at once: scattered over ``dim``
+    where it divides that mesh axis (a reduce-scatter), else all-reduced.
+    Torch 2.11 cannot bring the other operand of a later op to a partial
+    placement (``Shard`` to ``Partial``), so no partial sum leaves the
+    product that made it.  The identity on anything else."""
+    if not (is_dtensor(t) and any(p.is_partial() for p in t.placements)):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = t.device_mesh
+    taken = {p.dim for p in t.placements if p.is_shard()}
+    out = []
+    for i, p in enumerate(t.placements):
+        if p.is_partial() and dim not in taken and t.shape[dim] % mesh.size(i) == 0:
+            p = Shard(dim)
+            taken.add(dim)
+        elif p.is_partial():
+            p = Replicate()
+        out.append(p)
+    return t.redistribute(mesh, out)
 
 
 # ---------------------------------------------------------------------------
@@ -131,8 +357,18 @@ def _attend_block(q, k, v, q_pos, k_pos, causal, window, scale):
     The einsum form of ``repro``: masked scores are -1e30 in float32, a key
     at ``k_pos == -1`` is an unfilled slot, and a row with no valid key
     (an empty cache at position 0) gives zeros, where
-    ``scaled_dot_product_attention`` would give NaN."""
+    ``scaled_dot_product_attention`` would give NaN.  On ``DTensor``s whose
+    D is split (``shard_heads`` when the heads do not divide "model") the
+    partial scores are all-reduced before the mask, as XLA reduces them
+    for the softmax: left to ``DTensor``, they are reduce-scattered over
+    the queries, and the next product then fails on a local view
+    (recurrentgemma-2b's prefill_32k on 16x16)."""
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    if is_dtensor(scores):
+        from torch.distributed.tensor import Replicate
+
+        scores = scores.redistribute(scores.device_mesh, [
+            Replicate() if p.is_partial() else p for p in scores.placements])
     valid = (k_pos >= 0)[None, :]                        # (1, Sk)
     if causal:
         valid = valid & (k_pos[None, :] <= q_pos[:, None])
@@ -167,6 +403,42 @@ def attention(
     if G > 1:  # each KV head repeats G times in a row, as jnp.repeat
         k = k.repeat_interleave(G, dim=2)
         v = v.repeat_interleave(G, dim=2)
+    q, k, v = shard_heads(q), shard_heads(k), shard_heads(v)
+    args = (q_pos, k_pos, causal, window, scale, q_chunk, chunk_remat)
+    if _split_on_batch_and_heads(q, k, v):
+        from torch.distributed.tensor import DTensor
+
+        out = _attend(q.to_local(), k.to_local(), v.to_local(), *args).contiguous()
+        shape = (*q.shape[:3], v.shape[3])
+        return DTensor.from_local(out, q.device_mesh, q.placements, run_check=False,
+                                  shape=torch.Size(shape), stride=contiguous_stride(shape))
+    return _attend(q, k, v, *args)
+
+
+def contiguous_stride(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape`` (a ``DTensor``'s
+    global stride, for ``DTensor.from_local``)."""
+    stride = [1] * len(shape)
+    for d in range(len(shape) - 2, -1, -1):
+        stride[d] = stride[d + 1] * shape[d + 1]
+    return tuple(stride)
+
+
+def _split_on_batch_and_heads(q, k, v) -> bool:
+    """Whether q, k and v are ``DTensor``s placed alike and split over batch
+    (dim 0) or heads (dim 2) only.  Attention is then independent shard by
+    shard and runs on the local tensors, with no collective: ``DTensor``'s
+    own ``einsum`` flattens (batch, heads) into one dim before its ``bmm``,
+    and torch 2.11 refuses that view when both are split."""
+    if not all(is_dtensor(t) for t in (q, k, v)):
+        return False
+    pl = q.placements
+    return (k.placements == pl and v.placements == pl
+            and all(p.is_replicate() or (p.is_shard() and p.dim in (0, 2)) for p in pl))
+
+
+def _attend(q, k, v, q_pos, k_pos, causal, window, scale, q_chunk, chunk_remat):
+    Sq = q.shape[1]
     if Sq <= q_chunk or Sq % q_chunk != 0:
         return _attend_block(q, k, v, q_pos, k_pos, causal, window, scale)
     block = (_attend_block if not (chunk_remat and torch.is_grad_enabled())

@@ -19,10 +19,13 @@ from torch import nn
 from repro_torch.models.layers import (
     Norm,
     attention,
+    cache_write,
     dense_init_,
+    linear,
     new_param,
     norm_apply,
     rope_apply,
+    split_heads,
 )
 
 __all__ = ["MLA", "mla_project_qkv", "mla_attention", "mla_decode_absorbed"]
@@ -49,15 +52,14 @@ class MLA(nn.Module):
 
 def mla_project_qkv(p, x, positions, cfg):
     """Shared projections. Returns (q_nope, q_rope, c_kv, k_rope)."""
-    B, S, _ = x.shape
     H, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
-    q = x @ p.wq_a.to(x.dtype)
+    q = linear(x, p.wq_a)
     q = norm_apply(p.q_norm, q, "rmsnorm")
-    q = (q @ p.wq_b.to(x.dtype)).reshape(B, S, H, dn + dr)
+    q = split_heads(linear(q, p.wq_b), H, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = rope_apply(q_rope, positions, cfg.rope_theta)
 
-    ckv = x @ p.wkv_a.to(x.dtype)
+    ckv = linear(x, p.wkv_a)
     c_kv, k_rope = ckv[..., :cfg.kv_lora], ckv[..., cfg.kv_lora:]
     c_kv = norm_apply(p.kv_norm, c_kv, "rmsnorm")
     k_rope = rope_apply(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
@@ -70,8 +72,8 @@ def mla_attention(p, x, positions, cfg):
     B, S, _ = x.shape
     H, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     q_nope, q_rope, c_kv, k_rope = mla_project_qkv(p, x, positions, cfg)
-    k_nope = (c_kv @ p.wk_b.to(x.dtype)).reshape(B, S, H, dn)
-    v = (c_kv @ p.wv_b.to(x.dtype)).reshape(B, S, H, dv)
+    k_nope = split_heads(linear(c_kv, p.wk_b), H, dn)
+    v = split_heads(linear(c_kv, p.wv_b), H, dv)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H, dr)], dim=-1)
     out = attention(
@@ -80,7 +82,7 @@ def mla_attention(p, x, positions, cfg):
         causal=cfg.causal, window=cfg.window, q_chunk=cfg.attn_q_chunk,
         scale=(dn + dr) ** -0.5, chunk_remat=cfg.attn_chunk_remat,
     )
-    out = out.reshape(B, S, H * dv) @ p.wo.to(x.dtype)
+    out = linear(out.reshape(B, S, H * dv), p.wo)
     return out, (c_kv, k_rope)
 
 
@@ -95,8 +97,8 @@ def mla_decode_absorbed(p, x, pos: int, cache_ckv, cache_krope, cfg):
     R = cfg.kv_lora
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     q_nope, q_rope, c_kv_new, k_rope_new = mla_project_qkv(p, x, positions, cfg)
-    cache_ckv[:, pos] = c_kv_new[:, 0].to(cache_ckv.dtype)
-    cache_krope[:, pos] = k_rope_new[:, 0].to(cache_krope.dtype)
+    cache_write(cache_ckv, pos, c_kv_new)
+    cache_write(cache_krope, pos, k_rope_new)
 
     wk_b = p.wk_b.to(x.dtype).reshape(R, H, dn)
     q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], wk_b)
@@ -110,4 +112,4 @@ def mla_decode_absorbed(p, x, pos: int, cache_ckv, cache_krope, cfg):
     ctx = torch.einsum("bht,btr->bhr", probs, cache_ckv)      # latent context
     wv_b = p.wv_b.to(x.dtype).reshape(R, H, dv)
     out = torch.einsum("bhr,rhd->bhd", ctx, wv_b).reshape(B, 1, H * dv)
-    return out @ p.wo.to(x.dtype), cache_ckv, cache_krope
+    return linear(out, p.wo), cache_ckv, cache_krope

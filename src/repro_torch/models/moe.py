@@ -22,7 +22,19 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.layers import MLP, dense_init_, mlp_apply, new_param
+from repro_torch.models.layers import (
+    MLP,
+    constrain,
+    dense_init_,
+    is_dtensor,
+    linear,
+    local_product,
+    mlp_apply,
+    new_param,
+    pad_seq,
+    reduce_partial,
+    sharding_mesh,
+)
 
 __all__ = ["MoE", "moe_apply"]
 
@@ -84,16 +96,85 @@ def _aux(probs, logits, expert_idx, E: int, dims):
 
 
 def _router(p, xc):
-    logits = (xc @ p.router.to(xc.dtype)).float()
+    logits = linear(xc, p.router).float()
     probs = torch.softmax(logits, dim=-1)
     return logits, probs
 
 
+def _expert_split(xe, w):
+    """On a mesh whose "model" axis splits the experts of ``w`` (``repro``'s
+    expert parallelism), the dispatched tokens (..., E, C, d) are split
+    over the experts the same way and their batch dim over the data axes:
+    the dispatch's partial sums reduce-scatter onto each device's experts,
+    as XLA partitions ``repro``'s dispatch.  The identity otherwise."""
+    mesh = sharding_mesh()
+    if mesh is None or not (is_dtensor(xe) and is_dtensor(w)):
+        return xe
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.distributed.sharding import PartitionSpec, act_spec, mesh_axes
+
+    axes = list(mesh_axes(mesh))
+    if "model" not in axes or w.placements[axes.index("model")] != Shard(0):
+        return xe
+    spec = [None] * xe.ndim
+    if xe.ndim == 4:                       # grouped: (B, E, C, d)
+        spec[0] = act_spec(xe.shape[:1], mesh)[0]
+    spec[-3] = "model"
+    return constrain(xe, PartitionSpec(*spec), mesh)
+
+
+def _per_expert(x, w):
+    """x (..., E, C, a) @ w (E, a, b), expert by expert; on ``DTensor``s
+    ``local_product`` over x's E (``DTensor``'s ``einsum`` backward also
+    fails on a non-contiguous local shard here)."""
+    if is_dtensor(x):
+        return local_product(x, w, e=x.ndim - 3)
+    return torch.einsum("...ecd,edf->...ecf", x, w)
+
+
 def _experts_ffn(p, xe, dtype):
-    """xe (..., E, C, d) through each expert's SwiGLU."""
-    h = F.silu(torch.einsum("...ecd,edf->...ecf", xe, p.w_gate.to(dtype)))
-    h = h * torch.einsum("...ecd,edf->...ecf", xe, p.w_up.to(dtype))
-    return torch.einsum("...ecf,efd->...ecd", h, p.w_down.to(dtype))
+    """xe (..., E, C, d) through each expert's SwiGLU.  On a mesh whose
+    "model" axis splits the experts, the tokens go in split over the
+    experts (``_expert_split``).  The combine einsum then flattens C with
+    E, which ``DTensor`` refuses when C does not divide that axis
+    (deepseek-v2's C = 39 on 16): there the outputs come out replicated
+    over "model", one all-gather of (..., E, C, d) a chunk."""
+    split = _expert_split(xe, p.w_gate)
+    h = F.silu(_per_expert(split, p.w_gate.to(dtype)))
+    h = h * _per_expert(split, p.w_up.to(dtype))
+    y = _per_expert(h, p.w_down.to(dtype))
+    names = y.device_mesh.mesh_dim_names if split is not xe else ()
+    if "model" not in names or y.shape[-2] % y.device_mesh.size(names.index("model")) == 0:
+        return y
+    from torch.distributed.tensor import Replicate
+
+    return y.redistribute(y.device_mesh, [Replicate() if n == "model" else pl
+                                          for n, pl in zip(names, y.placements)])
+
+
+def _split_like_experts(mask, ye):
+    """The combine mask (..., E, C) and the expert outputs ``ye`` (..., E,
+    C, d), split over their experts and batch alike (``ye`` also over d)
+    and whole otherwise: the mask by a local slice where it is replicated.
+    The combine then contracts each device's own experts into a partial
+    sum, as XLA partitions ``repro``'s combine; left alone, ``DTensor``
+    gathers ``ye``'s experts and every device combines all of them, and a
+    split of C would sit inside the (E, C) fold the ``einsum`` makes, which
+    torch 2.11 refuses.  (The combine's subscripts name C ``f``, after E:
+    ``einsum`` folds its summed dims in letter order, and E, the split
+    one, must come first.)  The identity off a mesh."""
+    if not (is_dtensor(mask) and is_dtensor(ye)):
+        return mask, ye
+    from torch.distributed.tensor import Replicate, Shard
+
+    e, d = ye.ndim - 3, ye.ndim - 1        # ye's expert dim: 1 if grouped
+    mp, yp = [], []
+    for py in ye.placements:
+        batch = bool(e) and py == Shard(0)
+        yp.append(py if py in (Shard(e), Shard(d)) or batch else Replicate())
+        mp.append(Shard(mask.ndim - 2) if py == Shard(e) else py if batch else Replicate())
+    return mask.redistribute(mask.device_mesh, mp), ye.redistribute(ye.device_mesh, yp)
 
 
 def _chunk_moe(p, xc, cfg):
@@ -127,7 +208,8 @@ def _chunk_moe(p, xc, cfg):
     dispatch, combine = _masks(routes, gate_vals, C)
     xe = torch.einsum("nec,nd->ecd", dispatch.to(xc.dtype), xc)
     ye = _experts_ffn(p, xe, xc.dtype)
-    yc = torch.einsum("nec,ecd->nd", combine.to(xc.dtype), ye)
+    combine, ye = _split_like_experts(combine.to(xc.dtype), ye)
+    yc = reduce_partial(torch.einsum("nef,efd->nd", combine, ye), 1)
     return yc, lb_loss, z_loss
 
 
@@ -159,7 +241,8 @@ def _grouped_chunk_moe(p, xc, cfg):
 
     xe = torch.einsum("bsec,bsd->becd", dispatch.to(xc.dtype), xc)
     ye = _experts_ffn(p, xe, xc.dtype)
-    yc = torch.einsum("bsec,becd->bsd", combine.to(xc.dtype), ye)
+    combine, ye = _split_like_experts(combine.to(xc.dtype), ye)
+    yc = reduce_partial(torch.einsum("bsef,befd->bsd", combine, ye), 1)
     lb_loss, z_loss = _aux(probs, logits, expert_idx, E, (0, 1))
     return yc, lb_loss, z_loss
 
@@ -167,7 +250,7 @@ def _grouped_chunk_moe(p, xc, cfg):
 def moe_apply(p, x, cfg):
     """x (B, S, d) -> (y (B, S, d), aux dict of scalar losses)."""
     B, S, d = x.shape
-    lb = z = torch.zeros((), dtype=torch.float32, device=x.device)
+    lb = z = x.new_zeros((), dtype=torch.float32)   # a DTensor on a mesh
     ys = []
     remat = cfg.moe_remat and torch.is_grad_enabled()
 
@@ -180,7 +263,7 @@ def moe_apply(p, x, cfg):
         Sc = max(1, min(cfg.moe_group_seq, S))
         n_chunks = -(-S // Sc)
         pad = n_chunks * Sc - S
-        xg = F.pad(x, (0, 0, 0, pad)) if pad else x
+        xg = pad_seq(x, pad)
         for c in range(n_chunks):
             yc, lb_c, z_c = run(_grouped_chunk_moe, xg[:, c * Sc:(c + 1) * Sc])
             lb, z = lb + lb_c, z + z_c

@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.layers import dense_init_, new_param
+from repro_torch.models.layers import dense_init_, linear, new_param
 
 __all__ = ["RGLRU", "rglru_apply", "rglru_decode_step"]
 
@@ -61,8 +61,8 @@ class RGLRU(nn.Module):
 
 
 def _gates(p, u):
-    r = torch.sigmoid((u @ p.w_r.to(u.dtype)).float() + p.b_r.float())
-    i = torch.sigmoid((u @ p.w_i.to(u.dtype)).float() + p.b_i.float())
+    r = torch.sigmoid(linear(u, p.w_r).float() + p.b_r.float())
+    i = torch.sigmoid(linear(u, p.w_i).float() + p.b_i.float())
     a = torch.exp(-_C * F.softplus(p.lam) * r)
     b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * i * u.float()
     return a, b
@@ -94,23 +94,23 @@ def _linear_scan(a, b):
 
 def rglru_apply(p, x, *, conv_state=None, h_state=None):
     """Full-sequence block. x (B,S,d) -> (y (B,S,d), (h_last, conv_state))."""
-    gate = F.gelu(x @ p.w_gate.to(x.dtype), approximate="tanh")
-    u = x @ p.w_x.to(x.dtype)
+    gate = F.gelu(linear(x, p.w_gate), approximate="tanh")
+    u = linear(x, p.w_x)
     u, conv_state = _conv(p, u, conv_state)
     a, b = _gates(p, u)                       # (B,S,dr) float32
     if h_state is not None:                    # inject carried state as step 0
         b = torch.cat([b[:, :1] + a[:, :1] * h_state.float()[:, None], b[:, 1:]], 1)
     h = _linear_scan(a, b)
-    y = (h.to(x.dtype) * gate) @ p.w_out.to(x.dtype)
+    y = linear(h.to(x.dtype) * gate, p.w_out)
     return y, (h[:, -1], conv_state)
 
 
 def rglru_decode_step(p, x, h_state, conv_state):
     """One-token step. x (B,1,d); h (B,dr); conv (B,cw-1,dr)."""
-    gate = F.gelu(x @ p.w_gate.to(x.dtype), approximate="tanh")
-    u = x @ p.w_x.to(x.dtype)
+    gate = F.gelu(linear(x, p.w_gate), approximate="tanh")
+    u = linear(x, p.w_x)
     u, conv_state = _conv(p, u, conv_state)
     a, b = _gates(p, u)                        # (B,1,dr)
     h = a[:, 0] * h_state.float() + b[:, 0]
-    y = (h[:, None].to(x.dtype) * gate) @ p.w_out.to(x.dtype)
+    y = linear(h[:, None].to(x.dtype) * gate, p.w_out)
     return y, h, conv_state

@@ -20,7 +20,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.layers import dense_init_, new_param
+from repro_torch.models.layers import (
+    contiguous_stride,
+    dense_init_,
+    is_dtensor,
+    linear,
+    new_param,
+    pad_seq,
+)
 
 __all__ = ["RWKV", "rwkv_time_mix", "rwkv_time_mix_step", "rwkv_channel_mix",
            "rwkv_channel_mix_step"]
@@ -77,13 +84,13 @@ def _project(p, x, xx):
     """Lerped projections -> (lw (float32 log-decay), k, v, r, g)."""
     mu = p.mu.to(x.dtype)
     m = [x + (xx - x) * mu[i] for i in range(5)]
-    lora = torch.tanh(m[0] @ p.wA.to(x.dtype)) @ p.wB.to(x.dtype)
+    lora = linear(torch.tanh(linear(m[0], p.wA)), p.wB)
     lw = -torch.exp(p.w0.float() + lora.float())
     lw = torch.clamp(lw, -8.0, -1e-6)                     # log w_t in (-8, 0)
-    k = m[1] @ p.Wk.to(x.dtype)
-    v = m[2] @ p.Wv.to(x.dtype)
-    r = m[3] @ p.Wr.to(x.dtype)
-    g = m[4] @ p.Wg.to(x.dtype)
+    k = linear(m[1], p.Wk)
+    v = linear(m[2], p.Wv)
+    r = linear(m[3], p.Wr)
+    g = linear(m[4], p.Wg)
     return lw, k, v, r, g
 
 
@@ -97,10 +104,24 @@ def _group_norm(x, scale, eps=1e-5):
     return (xf.reshape(B, S, H * K) * scale).to(x.dtype)
 
 
+def _cumsum_time(t):
+    """``torch.cumsum`` along dim 2 (time).  On a ``DTensor`` whole along
+    time it runs on the local shard: torch 2.11's ``DTensor`` has no rule
+    for the ``flip`` that the ``cumsum`` backward takes."""
+    if is_dtensor(t) and not any(p.is_partial() or (p.is_shard() and p.dim == 2)
+                                 for p in t.placements):
+        from torch.distributed.tensor import DTensor
+
+        return DTensor.from_local(torch.cumsum(t.to_local(), dim=2), t.device_mesh,
+                                  t.placements, run_check=False, shape=t.shape,
+                                  stride=contiguous_stride(t.shape))
+    return torch.cumsum(t, dim=2)
+
+
 def _chunk_wkv(r, k, v, lw, u, state):
     """One chunk: r/k/v (B,H,L,K), lw float32 (B,H,L,K), state (B,H,K,V)."""
     rf, kf, vf = r.float(), k.float(), v.float()
-    Lcum = torch.cumsum(lw, dim=2)                         # inclusive
+    Lcum = _cumsum_time(lw)                                # inclusive
     Lprev = Lcum - lw                                      # exclusive
     r_t = rf * torch.exp(Lprev)                            # decayed queries
     k_t = kf * torch.exp(torch.clamp(-Lcum, max=_CLAMP))   # amplified keys
@@ -131,7 +152,7 @@ def rwkv_time_mix(p, x, H, *, shift_carry=None, state=None):
     pad = n * L - S
 
     def chunks(t):  # (B,S,d) -> (n, B, H, L, K), padded steps zero
-        t = F.pad(t, (0, 0, 0, pad)) if pad else t
+        t = pad_seq(t, pad)
         return t.reshape(B, n, L, H, K).permute(1, 0, 3, 2, 4)
 
     # zero padding is the mask: padded steps have lw = 0 and k = 0
@@ -143,7 +164,7 @@ def rwkv_time_mix(p, x, H, *, shift_carry=None, state=None):
         outs.append(out)
     out = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(B, n * L, H, K)[:, :S]
     y = _group_norm(out, p.gn_scale).to(x.dtype) * F.silu(g)
-    return y @ p.Wo.to(x.dtype), (x[:, -1], s)
+    return linear(y, p.Wo), (x[:, -1], s)
 
 
 def rwkv_time_mix_step(p, x, H, shift_carry, state):
@@ -159,7 +180,7 @@ def rwkv_time_mix_step(p, x, H, shift_carry, state):
     out = torch.einsum("bhk,bhkv->bhv", rh, state + p.u[None, :, :, None] * kv)
     new_state = state * w[..., None] + kv
     y = _group_norm(out.reshape(B, 1, H, K), p.gn_scale).to(x.dtype) * F.silu(g)
-    return y @ p.Wo.to(x.dtype), x[:, -1], new_state
+    return linear(y, p.Wo), x[:, -1], new_state
 
 
 def rwkv_channel_mix(p, x, *, shift_carry=None):
@@ -169,9 +190,9 @@ def rwkv_channel_mix(p, x, *, shift_carry=None):
     cmu = p.cmu.to(x.dtype)
     mk = x + (xx - x) * cmu[0]
     mr = x + (xx - x) * cmu[1]
-    kk = torch.square(torch.relu(mk @ p.Ck.to(x.dtype)))
-    vv = kk @ p.Cv.to(x.dtype)
-    rr = torch.sigmoid(mr @ p.Cr.to(x.dtype))
+    kk = torch.square(torch.relu(linear(mk, p.Ck)))
+    vv = linear(kk, p.Cv)
+    rr = torch.sigmoid(linear(mr, p.Cr))
     return rr * vv, x[:, -1]
 
 

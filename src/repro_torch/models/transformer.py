@@ -16,6 +16,7 @@ wraps each scanned period in ``jax.checkpoint``.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 from torch import nn
@@ -29,19 +30,24 @@ from repro_torch.models.layers import (
     Norm,
     _head_rmsnorm,
     attention,
+    cache_write,
+    constrain,
     dense_init_,
+    is_dtensor,
     linear,
     mlp_apply,
     new_param,
     norm_apply,
     rope_apply,
+    sharding_mesh,
+    split_heads,
 )
 from repro_torch.models.mla import MLA, mla_attention, mla_decode_absorbed
 from repro_torch.models.moe import MoE, moe_apply
 from repro_torch.models.rglru import RGLRU, rglru_apply, rglru_decode_step
 
 __all__ = ["Segment", "layer_specs", "plan_segments", "Attention", "Block",
-           "init_cache", "apply_stack"]
+           "cache_layout", "init_cache", "residual_spec", "make_constrainer", "apply_stack"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,33 +145,40 @@ class Block(nn.Module):
 # per-block caches
 # ---------------------------------------------------------------------------
 
-def _block_cache(cfg, spec, B, T, dtype, device):
+def _block_cache(cfg, spec, B, T, dtype):
     block, _ = spec
     Hkv, Dh = cfg.n_kv_heads, cfg.head_dim
 
-    def zeros(*shape, dt=dtype):
-        return torch.zeros(shape, dtype=dt, device=device)
+    def leaf(*shape, dt=dtype):
+        return shape, dt
 
     if block == "attn":
         Tc = min(T, cfg.window) if cfg.window else T
-        return {"k": zeros(B, Tc, Hkv, Dh), "v": zeros(B, Tc, Hkv, Dh)}
+        return {"k": leaf(B, Tc, Hkv, Dh), "v": leaf(B, Tc, Hkv, Dh)}
     if block == "mla":
-        return {"ckv": zeros(B, T, cfg.kv_lora), "krope": zeros(B, T, cfg.qk_rope_dim)}
+        return {"ckv": leaf(B, T, cfg.kv_lora), "krope": leaf(B, T, cfg.qk_rope_dim)}
     if block == "rec":
-        return {"h": zeros(B, cfg.d_rnn, dt=torch.float32),
-                "conv": zeros(B, cfg.conv_width - 1, cfg.d_rnn)}
+        return {"h": leaf(B, cfg.d_rnn, dt=torch.float32),
+                "conv": leaf(B, cfg.conv_width - 1, cfg.d_rnn)}
     if block == "rwkv":
         H = cfg.d_model // cfg.rwkv_head_dim
         K = cfg.rwkv_head_dim
-        return {"state": zeros(B, H, K, K, dt=torch.float32),
-                "sa": zeros(B, cfg.d_model), "sc": zeros(B, cfg.d_model)}
+        return {"state": leaf(B, H, K, K, dt=torch.float32),
+                "sa": leaf(B, cfg.d_model), "sc": leaf(B, cfg.d_model)}
     raise ValueError(block)
+
+
+def cache_layout(cfg: ModelConfig, B: int, T: int) -> list[dict]:
+    """Each layer's cache leaves as ``{name: (shape, dtype)}``, in model
+    order; nothing is allocated."""
+    dtype = DTYPES[cfg.act_dtype]
+    return [_block_cache(cfg, spec, B, T, dtype) for spec in layer_specs(cfg)]
 
 
 def init_cache(cfg: ModelConfig, B: int, T: int, device) -> list[dict]:
     """Zero caches, one dict per layer in model order."""
-    dtype = DTYPES[cfg.act_dtype]
-    return [_block_cache(cfg, spec, B, T, dtype, device) for spec in layer_specs(cfg)]
+    return [{k: torch.zeros(shape, dtype=dt, device=device) for k, (shape, dt) in layer.items()}
+            for layer in cache_layout(cfg, B, T)]
 
 
 # ---------------------------------------------------------------------------
@@ -178,11 +191,10 @@ def _ring_kpos(pos: int, Wd: int, device):
 
 
 def _attn_qkv(p, x, positions, cfg):
-    B, S, _ = x.shape
     Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = linear(x, p.wq).reshape(B, S, Hq, Dh)
-    k = linear(x, p.wk).reshape(B, S, Hkv, Dh)
-    v = linear(x, p.wv).reshape(B, S, Hkv, Dh)
+    q = split_heads(linear(x, p.wq), Hq, Dh)
+    k = split_heads(linear(x, p.wk), Hkv, Dh)
+    v = split_heads(linear(x, p.wv), Hkv, Dh)
     if cfg.qk_norm:
         q = _head_rmsnorm(q, p.q_norm)
         k = _head_rmsnorm(k, p.k_norm)
@@ -201,13 +213,16 @@ def _attn_block(p, x, cfg, positions, mode, cache, pos):
         y = linear(out.reshape(B, S, -1), p.wo)
         if mode == "prefill":
             if cfg.window and cfg.window < S:          # ring buffer: last Wd keys
+                # key S - Wd + j goes to slot (S - Wd + j) % Wd: a roll by
+                # r, as two slices (``DTensor`` has no rule for ``roll``)
                 Wd = cfg.window
-                sel = torch.arange(S - Wd, S, device=x.device)
-                cache["k"][:, sel % Wd] = k[:, sel].to(cache["k"].dtype)
-                cache["v"][:, sel % Wd] = v[:, sel].to(cache["v"].dtype)
+                r = (S - Wd) % Wd
+                for name, t in (("k", k), ("v", v)):
+                    last = t[:, S - Wd:]
+                    cache_write(cache[name], 0, torch.cat([last[:, Wd - r:], last[:, :Wd - r]], 1))
             else:
-                cache["k"][:, :S] = k.to(cache["k"].dtype)
-                cache["v"][:, :S] = v.to(cache["v"].dtype)
+                cache_write(cache["k"], 0, k)
+                cache_write(cache["v"], 0, v)
         return y
 
     # ---- decode: one token at position ``pos`` ----------------------------
@@ -219,8 +234,8 @@ def _attn_block(p, x, cfg, positions, mode, cache, pos):
     else:
         slot = pos
         k_pos = torch.arange(Tc, dtype=torch.int32, device=x.device)
-    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    cache_write(cache["k"], slot, k)
+    cache_write(cache["v"], slot, v)
     out = attention(q, cache["k"], cache["v"], q_pos=positions, k_pos=k_pos,
                     causal=True, window=None, q_chunk=cfg.attn_q_chunk)
     return linear(out.reshape(B, 1, -1), p.wo)
@@ -230,9 +245,8 @@ def _mla_block(p, x, cfg, positions, mode, cache, pos):
     if mode != "decode":
         y, (c_kv, k_rope) = mla_attention(p, x, positions, cfg)
         if mode == "prefill":
-            S = x.shape[1]
-            cache["ckv"][:, :S] = c_kv.to(cache["ckv"].dtype)
-            cache["krope"][:, :S] = k_rope.to(cache["krope"].dtype)
+            cache_write(cache["ckv"], 0, c_kv)
+            cache_write(cache["krope"], 0, k_rope)
         return y
     y, _, _ = mla_decode_absorbed(p, x, pos, cache["ckv"], cache["krope"], cfg)
     return y
@@ -293,22 +307,76 @@ def _block_apply(p, x, cfg, positions, mode, cache, pos):
 # stack apply
 # ---------------------------------------------------------------------------
 
+def residual_spec(shape, mesh):
+    """``repro``'s spec for the (B, S, d) residual stream between blocks:
+    batch over (pod, data), else the sequence; the sequence over "model"
+    when the data axes left it (Megatron-style sequence parallelism)."""
+    from repro_torch.distributed.sharding import PartitionSpec, mesh_axes
+
+    sizes = mesh_axes(mesh)
+    daxes = tuple(a for a in ("pod", "data") if a in sizes)
+    dsize = math.prod(sizes[a] for a in daxes)
+    msize = sizes.get("model", 1)
+    B, S, _ = shape
+    spec: list = [None, None, None]
+    if B % dsize == 0 and B > 1:
+        spec[0] = daxes
+    elif S % dsize == 0 and S >= dsize:
+        spec[1] = daxes
+    if spec[1] is None and S % msize == 0 and S >= msize:
+        spec[1] = "model"
+    return PartitionSpec(*spec)
+
+
+def make_constrainer(mesh):
+    """The residual stream's constraint to ``residual_spec`` on ``mesh``
+    (``repro``'s); None without a mesh, the identity on a plain tensor."""
+    if mesh is None:
+        return None
+
+    def constrain_residual(x):
+        if x.ndim != 3 or not is_dtensor(x):
+            return x
+        return constrain(x, residual_spec(x.shape, mesh), mesh)
+
+    return constrain_residual
+
+
+def _period_ends(cfg) -> list[bool]:
+    """For each layer in model order, whether it ends a period of its
+    segment (``repro`` constrains the residual before each block of a
+    period and after its last)."""
+    ends = []
+    for seg in plan_segments(cfg):
+        n = len(seg.specs)
+        ends.extend([j == n - 1 for j in range(n)] * seg.count)
+    return ends
+
+
 def apply_stack(layers, x, cfg, positions, mode, caches=None, pos=None):
     """Run every layer in order.  Returns (x, {"lb": ..., "z": ...}); in
     ``prefill`` and ``decode`` mode ``caches`` (one dict a layer) is updated
     in place.  Mode ``train`` takes no cache, so a recomputed block never
-    reads a tensor written since its forward."""
+    reads a tensor written since its forward.  Under ``use_sharding_mesh``
+    the residual is constrained where ``repro``'s ``_period_apply`` does:
+    before each block of a period and after the period's last block."""
     if mode == "train" and caches is not None:
         raise ValueError("mode 'train' writes no cache; got caches")
     remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
-    lb = z = torch.zeros((), dtype=torch.float32, device=x.device)
+    constrain_residual = make_constrainer(sharding_mesh())
+    ends = _period_ends(cfg) if constrain_residual is not None else None
+    lb = z = x.new_zeros((), dtype=torch.float32)   # a DTensor on a mesh
     for i, layer in enumerate(layers):
         c = caches[i] if caches is not None else None
+        if constrain_residual is not None:
+            x = constrain_residual(x)
         if remat:
             x, aux = checkpoint(_block_apply, layer, x, cfg, positions, mode, c, pos,
                                 use_reentrant=False)
         else:
             x, aux = _block_apply(layer, x, cfg, positions, mode, c, pos)
+        if constrain_residual is not None and ends[i]:
+            x = constrain_residual(x)
         if aux is not None:
             lb, z = lb + aux[0], z + aux[1]
     return x, {"lb": lb, "z": z}

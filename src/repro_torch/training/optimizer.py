@@ -45,9 +45,11 @@ def cosine_lr(step, cfg: AdamWConfig) -> torch.Tensor:
 
 def adamw_init(params: dict) -> dict:
     """Zero float32 moments ``{"m": {name: t}, "v": {name: t}}`` on each
-    parameter's device."""
+    parameter's device (a ``DTensor`` parameter's moments are ``DTensor``s
+    of its placement)."""
     def zeros32(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32,
+                                memory_format=torch.contiguous_format)
 
     return {"m": {n: zeros32(p) for n, p in params.items()},
             "v": {n: zeros32(p) for n, p in params.items()}}

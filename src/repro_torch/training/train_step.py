@@ -47,8 +47,9 @@ def make_train_step(model, opt_cfg: AdamWConfig):
         if state.model is not model:
             raise ValueError("train_step was made for another model than the state's")
         model.zero_grad(set_to_none=True)
-        loss, metrics = model.loss(batch)
-        loss.backward()
+        with model.sharding_context():   # the backward recomputes blocks
+            loss, metrics = model.loss(batch)
+            loss.backward()
         params = state.params
         _, _, stats = adamw_update(params, {n: p.grad for n, p in params.items()},
                                    state.opt, state.step, opt_cfg)

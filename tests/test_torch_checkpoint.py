@@ -97,6 +97,19 @@ def test_restore_keeps_dtype_and_refuses_missing_leaves(tmp_path):
         restore_checkpoint(str(tmp_path), 1, other)
 
 
+def test_restore_refuses_compressed_members(tmp_path):
+    """Every member is mapped from the file as ``np.savez`` stores it; one
+    that was compressed afterwards is refused, not read another way."""
+    state = _state()
+    save_checkpoint(str(tmp_path), 1, state)
+    path = tmp_path / "step_1" / "arrays.npz"
+    with np.load(path) as data:
+        arrays = {k: data[k] for k in data.files}
+    np.savez_compressed(path, **arrays)
+    with pytest.raises(ValueError, match="compressed"):
+        restore_checkpoint(str(tmp_path), 1, _state(seed=1, steps=0))
+
+
 def test_retention_and_latest(tmp_path):
     state = {"x": torch.zeros(2)}
     for s in (1, 2, 3, 4, 5):

@@ -1401,3 +1401,92 @@ def test_cuda_train_crash_and_resume(cuda_device, tmp_path):
     out = run_with_restarts(run, ckpt_dir=ck, max_restarts=1)
     assert starts == [0, 8] and out["steps"] == 4
     assert abs(out["final_loss"] - ref["final_loss"]) < 1e-3
+
+
+# ---------------------------------------------------------------------------
+# the LM stack's mesh half on the card (an NCCL group of one, in a subprocess:
+# a process group is global to a process)
+# ---------------------------------------------------------------------------
+
+MESH_MODULES = ("distributed/sharding.py", "launch/dryrun.py", "launch/op_analysis.py",
+                "launch/mesh.py")
+
+MESH_PROBE = """
+import socket, sys, tempfile
+import torch, torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import DTensor
+from repro_torch.configs import get_config
+from repro_torch.distributed.fault_tolerance import reshard_state
+from repro_torch.distributed.sharding import (batch_shardings, distribute, place_state,
+                                              state_shardings)
+from repro_torch.models import build_model
+from repro_torch.training import AdamWConfig, SyntheticData, init_train_state, make_train_step
+from repro_torch.training.checkpoint import save_checkpoint
+
+dev = torch.device("cuda", 0)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+with socket.socket() as s:
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1,
+                        device_id=dev)
+mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+cfg = get_config("qwen3-4b").reduced()
+opt = AdamWConfig(peak_lr=1e-3, warmup_steps=0, total_steps=2)
+batches = [SyntheticData.for_model(cfg, 2, 64, seed=6).batch(i) for i in range(2)]
+plain = build_model(cfg, dev, generator=torch.Generator(device=dev).manual_seed(6))
+placed = build_model(cfg, dev, generator=torch.Generator(device=dev).manual_seed(6))
+states = [init_train_state(m) for m in (plain, placed)]
+place_state(states[1], state_shardings(states[1], mesh))
+steps = [make_train_step(m, opt) for m in (plain, placed)]
+for b in batches:
+    _, want = steps[0](states[0], b)
+    db = distribute({k: torch.as_tensor(v, device=dev) for k, v in b.items()},
+                    batch_shardings(b, mesh))
+    _, got = steps[1](states[1], db)
+    for key in ("loss", "grad_norm"):
+        g, w = float(got[key].full_tensor()), float(want[key])
+        assert abs(g - w) <= 1e-4 * abs(w), (key, g, w)
+for (n, a), b in zip(placed.named_parameters(), plain.parameters()):
+    assert isinstance(a, DTensor) and a.device.type == "cuda", n
+    assert float((a.full_tensor() - b).abs().max()) <= 2 * 1e-3 * len(batches), n
+with tempfile.TemporaryDirectory() as tmp:
+    save_checkpoint(tmp, 2, states[1])
+    fresh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    back = reshard_state(tmp, 2, init_train_state(build_model(cfg, "meta")), fresh)
+want = state_shardings(back, fresh)
+assert back.step == 2
+for n, p in back.params.items():
+    assert p.device_mesh == fresh and tuple(p.placements) == want["params"][n].placements
+    assert torch.equal(p.full_tensor(), states[1].params[n].full_tensor()), n
+for k in ("m", "v"):
+    for n, t in back.opt[k].items():
+        assert torch.equal(t.full_tensor(), states[1].opt[k][n].full_tensor()), (k, n)
+dist.destroy_process_group()
+print("MESH_OK")
+"""
+
+
+def test_mesh_modules_are_port_files():
+    """The mesh half's modules are among the files held to import no JAX and
+    nothing of ``repro``."""
+    for rel in MESH_MODULES:
+        assert ROOT / "src" / "repro_torch" / rel in PORT_FILES, rel
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_train_step_and_reshard(cuda_device):
+    """On a (1, 1) NCCL mesh, reduced qwen3-4b's AdamW steps on placed
+    ``DTensor``s equal the steps without a mesh (loss and ``grad_norm``
+    within 1e-4, parameters within AdamW's 2 lr a step, TF32 off); its
+    checkpoint restores through ``reshard_state`` onto a fresh mesh, every
+    leaf placed as the resolver says and equal to the saved one."""
+    import os
+    import subprocess
+    import sys
+
+    r = subprocess.run([sys.executable, "-c", MESH_PROBE], capture_output=True, text=True,
+                       timeout=600, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    assert r.returncode == 0 and "MESH_OK" in r.stdout, r.stderr[-3000:]
