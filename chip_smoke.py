@@ -88,8 +88,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 10. full distance-2 — ``distance2`` on rmat-er and thermal2 (``auto``
              composes the two hops on the fly: K3 over composed rows read
              in place, timed at the first step; K2 over composed rows),
-             ``distance2`` precomputed on thermal2 (K1 over G², K2; the
-             host G² build timed apart), ``bipartite`` on
+             ``distance2`` precomputed on thermal2 (K1 over G², K2; one
+             timed call, nearly all of it the host G² build, not
+             profiled), ``bipartite`` on
              ``jacobian_band(1<<20, 3)`` (K3, K2; optimum 7 colours, and
              ``compress_jacobian_pattern`` into 7 groups) and
              ``d2_sgr_step`` to convergence on rmat-er (K6, K5): valid
@@ -184,7 +185,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
              run, within the printed tolerances; then a checkpointed 12-step
              run on the card that crashes at step 8 and is resumed by
              ``run_with_restarts``, ending within 1e-3 of the uninterrupted
-             run's loss; (b) qwen3-4b at full width and depth, step 0 (batch
+             run's loss; reduced mixtral-8x22b and deepseek-v2-236b count
+             their chunk calls in one train step (functions wrapped from
+             here): each MoE chunk once forward and once in the backward,
+             the attention q-chunks as the CPU test counts them; (b)
+             qwen3-4b at full width and depth, step 0 (batch
              2, sequence 256) in float32 against the same weights cast to
              bfloat16: the loss within 1%, the gradient norm within 10%;
              (c) ``train_loop`` on qwen3-4b at full size in bfloat16 (remat
@@ -217,6 +222,7 @@ The line before the last is the kernels' JSON record, and the last line is
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import ctypes
@@ -2174,16 +2180,9 @@ def check_d2_full(graphs: dict, dev_cuda, lat: dict) -> dict:
             print(f"{label}: strategy auto resolves to {strategy} (host time of the "
                   f"pick, inside every call: {(time.perf_counter() - t) * 1e3:.1f} ms)",
                   flush=True)
-        if precomputed:
-            t = time.perf_counter()
-            g2 = g.square()
-            print(f"{label}: host G^2 build {time.perf_counter() - t:.1f} s "
-                  f"(n={g2.n}, m={g2.m}, dmax={g2.max_degree}); color() below "
-                  "includes it", flush=True)
-            del g2
         out = run_full(label, lambda: color(g, algorithm, device=dev_cuda, **opts),
                        kernels, lambda c: valid(g, c), reps=1 if precomputed else 3,
-                       what=str(opts))
+                       what=str(opts), profile=not precomputed)
         for k, c in out["counts"].items():
             totals[k] += c
         if not precomputed:
@@ -3332,6 +3331,74 @@ TRAIN_FULL_LR = 3e-4   # train_loop's default
 TRAIN_PROFILED = 2   # the warm step run under the profiler (not in the median)
 
 
+# reduced families whose train step phase 16 (a) counts the chunk calls of
+CHUNK_COUNTED = ("mixtral-8x22b", "deepseek-v2-236b")
+
+
+@contextlib.contextmanager
+def counting_chunk_calls():
+    """Counts the calls of the MoE chunk functions and of ``_attend_block``
+    while it is entered (wrapped from here; the package has no switch)."""
+    import repro_torch.models.layers as lm_layers
+    import repro_torch.models.moe as lm_moe
+
+    counts = collections.Counter()
+    saved = [(mod, name, getattr(mod, name)) for mod, name in (
+        (lm_moe, "_chunk_moe"), (lm_moe, "_grouped_chunk_moe"),
+        (lm_layers, "_attend_block"))]
+
+    def counted(name, fn):
+        def wrapped(*args, **kwargs):
+            counts[name] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    for mod, name, fn in saved:
+        setattr(mod, name, counted(name, fn))
+    try:
+        yield counts
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def chunk_calls(model, batch) -> dict:
+    """Phase 16 (a): the chunk calls of one train step (loss, then its
+    backward) of a reduced MoE family with ``remat``, ``moe_remat`` and
+    ``attn_chunk_remat`` on.  Each MoE chunk must run once forward and once
+    in the backward (the remat period's recompute stops before the chunk
+    loop, as XLA drops it in ``repro``'s step); the q-chunked attention runs
+    three times a chunk in a remat period and twice in a plain layer, the
+    counts ``tests/test_torch_dryrun.py`` holds on the CPU."""
+    from repro_torch.models.transformer import plan_segments
+
+    cfg = model.cfg
+    with counting_chunk_calls() as counts:
+        loss, _ = model.loss(batch)
+        forward = dict(counts)
+        loss.backward()
+        step = dict(counts)
+    model.zero_grad(set_to_none=True)
+    name = "_grouped_chunk_moe" if cfg.moe_group == "seq" else "_chunk_moe"
+    S = batch["tokens"].shape[1]
+    n_attn = S // cfg.attn_q_chunk if S > cfg.attn_q_chunk and S % cfg.attn_q_chunk == 0 else 1
+    scanned = sum(len(s.specs) * s.count for s in plan_segments(cfg) if s.kind == "scan")
+    attn_want = (3 * scanned + 2 * (cfg.n_layers - scanned)) * n_attn
+    if not (cfg.remat and cfg.moe_remat and cfg.attn_chunk_remat):
+        fail(f"train {cfg.name}: the chunk count needs remat, moe_remat and attn_chunk_remat on")
+    if not (forward.get(name, 0) >= 1 and step.get(name) == 2 * forward[name]):
+        fail(f"train {cfg.name}: {name} ran {forward.get(name)} times forward and "
+             f"{step.get(name)} in the step; each chunk must run once more in the backward")
+    if step.get("_attend_block") != attn_want:
+        fail(f"train {cfg.name}: _attend_block ran {step.get('_attend_block')} times in the "
+             f"step, the CPU test's count is {attn_want}")
+    print(f"  train {cfg.name:18s} one step's chunk calls: {name} {forward[name]} forward, "
+          f"{step[name]} in the step; _attend_block {forward.get('_attend_block')} forward, "
+          f"{step['_attend_block']} in the step (want {attn_want})", flush=True)
+    return {"moe": (forward[name], step[name]),
+            "attend": (forward.get("_attend_block"), step["_attend_block"])}
+
+
 def loss_grads(model, batch) -> tuple[float, dict]:
     """``Model.loss`` and its backward: the loss and each gradient on the
     host (a leaf the loss does not reach fails)."""
@@ -3360,6 +3427,8 @@ def train_card_vs_cpu(dev_cuda):
             here = copy.deepcopy(cpu)   # the card's parameters, step by step
             data = SyntheticData.for_model(cfg, 2, 64, seed=i)   # q-chunked, 2 scan chunks
             batches = [data.batch(s) for s in range(TRAIN_STEPS)]
+            if arch in CHUNK_COUNTED:
+                chunk_calls(card, batches[0])
             (l_cpu, g_cpu), (l_card, g_card) = (loss_grads(m, batches[0]) for m in (cpu, card))
             grad_err = max(float((g_card[n] - g_cpu[n]).abs().max())
                            / max(float(g_cpu[n].abs().max()), 1e-30) for n in g_cpu)

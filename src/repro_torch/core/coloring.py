@@ -100,6 +100,7 @@ __all__ = [
     "fused_result",
     "gather_rows",
     "order_tail",
+    "provider_tail",
     "ragged_superstep",
     "resolve_tail_threshold",
     "run_fused_loop",
@@ -352,6 +353,12 @@ def serial_tail_step(row1_fn, colors_ext, wl, kind: str = "bitset"):
         ff = FF_FUNCS[kind](nc[None, :])[0]
         colors_ext[v] = ff if v < n else 0
     return colors_ext
+
+
+def provider_tail(provider, colors_ext, wl, *, kind="bitset"):
+    """``serial_tail_step`` over a row provider's ``row1`` (``repro``'s,
+    which caches its compilation); updates ``colors_ext`` in place."""
+    return serial_tail_step(provider.row1, colors_ext, wl, kind)
 
 
 def order_tail(wl: torch.Tensor, deg_ext: torch.Tensor) -> torch.Tensor:

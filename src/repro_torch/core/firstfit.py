@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["firstfit_scan", "firstfit_sort", "firstfit_bitset", "FF_FUNCS"]
+__all__ = ["firstfit_scan", "firstfit_sort", "firstfit_bitset", "FF_FUNCS", "ffs_u32"]
 
 
 def firstfit_scan(neigh_colors: torch.Tensor) -> torch.Tensor:
@@ -39,6 +39,18 @@ def firstfit_sort(neigh_colors: torch.Tensor) -> torch.Tensor:
     for d in range(s.shape[1]):
         f = torch.where(s[:, d] == f, f + 1, f)
     return f
+
+
+def ffs_u32(x: torch.Tensor) -> torch.Tensor:
+    """Find-first-set per 32-bit word: the index of its lowest 1 bit, 32
+    where the word is 0 (``repro``'s ``ffs_u32``), as int32.  Words are
+    int32 here (bit 31 the sign bit; torch's uint32 has no shifts on the
+    CPU), or wider integers whose low 32 bits are taken; torch has no
+    popcount, so the index is the least set position over a table of the
+    32 bits, as the Pallas kernels find a first free bit."""
+    bitpos = torch.arange(32, dtype=torch.int32, device=x.device)
+    hit = ((x.to(torch.int32)[..., None] >> bitpos) & 1) == 1  # arithmetic shift
+    return torch.where(hit, bitpos, 32).amin(dim=-1).to(torch.int32)
 
 
 def first_free_bit(words: torch.Tensor, limit: int) -> torch.Tensor:

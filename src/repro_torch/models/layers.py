@@ -186,15 +186,15 @@ def dense_init_(w: torch.Tensor, generator: torch.Generator,
     return w.copy_(draw.mul_(std))
 
 
-def linear(x, w):
+def linear(x, w, reduce_dims=()):
     """``x @ w`` (w cast to x's dtype).  On ``DTensor``s, ``local_product``."""
     w = w.to(x.dtype)
     if is_dtensor(x) and is_dtensor(w):
-        return local_product(x, w)
+        return local_product(x, w, reduce_dims=reduce_dims)
     return x @ w
 
 
-def local_product(x, w, e: int | None = None):
+def local_product(x, w, e: int | None = None, reduce_dims=()):
     """x (..., a) @ w (a, b) on ``DTensor``s, on the local shards; with
     ``e``, w is (E, a, b) and x's dim ``e`` its E (a product per expert).
     Mesh dim by mesh dim:
@@ -246,12 +246,41 @@ def local_product(x, w, e: int | None = None):
         else:
             rules.append((Replicate(), px, px, Replicate()))
     wp, out, x_grad, w_grad = (list(r) for r in zip(*rules))
-    x, w = x.redistribute(mesh, xp), w.redistribute(mesh, wp)
+    x, w = _redistributed(x, xp), w.redistribute(mesh, wp)
     y = torch.matmul(x.to_local(grad_placements=x_grad), w.to_local(grad_placements=w_grad))
     shape = (*x.shape[:-1], w.shape[-1])
     y = DTensor.from_local(y, mesh, out, run_check=False, shape=torch.Size(shape),
                            stride=contiguous_stride(shape))
-    return reduce_partial(y, a)
+    return reduce_partial(y, *reduce_dims, a)
+
+
+def gather_operand(x, *ws):
+    """``x`` (B, S, ..., a) made whole on each mesh dim where it is split
+    on a leading dim after the first (the sequence) or on ``a`` while
+    every one of ``ws`` splits its ``b`` (column parallel): one gather for
+    all of them, as XLA gathers an operand several projections share
+    once, and their products then split their outputs over ``b`` with no
+    partial sum; the partial sums of ``x``'s gradient add up before they
+    reduce, once.  The identity off ``DTensor``s."""
+    if not (is_dtensor(x) and all(is_dtensor(w) for w in ws)):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    pl = [Replicate() if type(p) is Shard and p.dim > 0
+          and all(w.placements[i] == Shard(w.ndim - 1) for w in ws) else p
+          for i, p in enumerate(x.placements)]
+    return _redistributed(x, pl)
+
+
+def _redistributed(t, placements):
+    """``t`` redistributed to ``placements``, and ``t`` itself where it is
+    placed so already: ``DTensor``'s ``redistribute`` to the same
+    placements adds a node whose backward all-reduces a partial gradient
+    of a replicated ``t``, where a gather before it would reduce-scatter
+    that gradient at half the bytes."""
+    if list(t.placements) == list(placements):
+        return t
+    return t.redistribute(t.device_mesh, placements)
 
 
 def pad_seq(t, n: int, value=0):
@@ -266,9 +295,10 @@ def pad_seq(t, n: int, value=0):
     return torch.cat([t, t.new_full((t.shape[0], n, *t.shape[2:]), value)], dim=1)
 
 
-def reduce_partial(t, dim: int):
-    """A ``DTensor``'s partial sums reduced at once: scattered over ``dim``
-    where it divides that mesh axis (a reduce-scatter), else all-reduced.
+def reduce_partial(t, *dims: int):
+    """A ``DTensor``'s partial sums reduced at once: scattered over the
+    first of ``dims`` that is split nowhere else and divides that mesh
+    axis (a reduce-scatter), else all-reduced.
     Torch 2.11 cannot bring the other operand of a later op to a partial
     placement (``Shard`` to ``Partial``), so no partial sum leaves the
     product that made it.  The identity on anything else."""
@@ -280,9 +310,10 @@ def reduce_partial(t, dim: int):
     taken = {p.dim for p in t.placements if p.is_shard()}
     out = []
     for i, p in enumerate(t.placements):
-        if p.is_partial() and dim not in taken and t.shape[dim] % mesh.size(i) == 0:
-            p = Shard(dim)
-            taken.add(dim)
+        free = [d for d in dims if d not in taken and t.shape[d] % mesh.size(i) == 0]
+        if p.is_partial() and free:
+            p = Shard(free[0])
+            taken.add(free[0])
         elif p.is_partial():
             p = Replicate()
         out.append(p)
@@ -470,6 +501,7 @@ class MLP(nn.Module):
 
 def mlp_apply(p, x, act: str):
     if act == "silu":
-        return linear(F.silu(linear(x, p.w_gate)) * linear(x, p.w_up), p.w_down)
+        x = gather_operand(x, p.w_gate, p.w_up)
+        return linear(F.silu(linear(x, p.w_gate)) * linear(x, p.w_up), p.w_down, reduce_dims=(1,))
     # jax.nn.gelu's default is the tanh form
-    return linear(F.gelu(linear(x, p.w_up), approximate="tanh"), p.w_down)
+    return linear(F.gelu(linear(x, p.w_up), approximate="tanh"), p.w_down, reduce_dims=(1,))

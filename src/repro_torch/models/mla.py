@@ -21,6 +21,7 @@ from repro_torch.models.layers import (
     attention,
     cache_write,
     dense_init_,
+    gather_operand,
     linear,
     new_param,
     norm_apply,
@@ -53,6 +54,7 @@ class MLA(nn.Module):
 def mla_project_qkv(p, x, positions, cfg):
     """Shared projections. Returns (q_nope, q_rope, c_kv, k_rope)."""
     H, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    x = gather_operand(x, p.wq_a, p.wkv_a)
     q = linear(x, p.wq_a)
     q = norm_apply(p.q_norm, q, "rmsnorm")
     q = split_heads(linear(q, p.wq_b), H, dn + dr)
@@ -82,7 +84,7 @@ def mla_attention(p, x, positions, cfg):
         causal=cfg.causal, window=cfg.window, q_chunk=cfg.attn_q_chunk,
         scale=(dn + dr) ** -0.5, chunk_remat=cfg.attn_chunk_remat,
     )
-    out = linear(out.reshape(B, S, H * dv), p.wo)
+    out = linear(out.reshape(B, S, H * dv), p.wo, reduce_dims=(1,))
     return out, (c_kv, k_rope)
 
 

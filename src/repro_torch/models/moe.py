@@ -12,10 +12,13 @@ port of ``repro.models.moe``).
   zero pad tokens of the last chunk are routed too and take slots);
   ``"seq"`` routes each batch row in groups of ``moe_group_seq`` positions;
 * shared experts (DeepSeek-V2) run densely on every token;
-* ``moe_remat`` (with gradients on): each chunk's dispatch is recomputed in
-  the backward, as ``repro``'s ``jax.checkpoint`` of its chunk loop.
+* ``moe_remat`` (with gradients on): each chunk is recomputed once in the
+  backward, as ``repro``'s ``jax.checkpoint`` of its chunk loop, also inside
+  a remat period (``_LoopInputs``).
 """
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +34,7 @@ from repro_torch.models.layers import (
     local_product,
     mlp_apply,
     new_param,
+    _redistributed,
     pad_seq,
     reduce_partial,
     sharding_mesh,
@@ -101,21 +105,57 @@ def _router(p, xc):
     return logits, probs
 
 
+def _ep_dim(w):
+    """The mesh dim whose "model" axis splits the experts of ``w`` (E, a,
+    b), ``repro``'s expert parallelism; None off such a mesh."""
+    if not is_dtensor(w):
+        return None
+    names = w.device_mesh.mesh_dim_names or ()
+    i = names.index("model") if "model" in names else None
+    return i if i is not None and w.placements[i].is_shard(0) else None
+
+
+def _placed(t, i, dim=None):
+    """``t`` split over its ``dim`` on mesh dim ``i``, or whole there
+    (``dim`` None); the identity where ``i`` is None or ``t`` is no
+    ``DTensor``."""
+    if i is None or not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+
+    pl = list(t.placements)
+    pl[i] = Replicate() if dim is None else Shard(dim)
+    return _redistributed(t, pl)
+
+
 def _expert_split(xe, w):
-    """On a mesh whose "model" axis splits the experts of ``w`` (``repro``'s
-    expert parallelism), the dispatched tokens (..., E, C, d) are split
-    over the experts the same way and their batch dim over the data axes:
-    the dispatch's partial sums reduce-scatter onto each device's experts,
-    as XLA partitions ``repro``'s dispatch.  The identity otherwise."""
+    """The dispatched tokens (..., E, C, d) as the expert products take
+    them: a partial sum (the dispatch contracted tokens split over a mesh
+    dim: the sequence where the experts are whole over "model", the flat
+    tokens over the data axes) made whole through a reduce-scatter and an
+    all-gather, an all-reduce's bytes, so that its gradient comes back
+    whole too (a direct all-reduce's stays partial, and the dispatch's
+    backward then gathers its mask and contracts every token on every
+    device); on a mesh whose "model" axis splits the experts of ``w``,
+    split over the experts the same way and the batch dim (grouped) over
+    the data axes.  The identity off a mesh."""
     mesh = sharding_mesh()
-    if mesh is None or not (is_dtensor(xe) and is_dtensor(w)):
+    if mesh is None or not is_dtensor(xe):
         return xe
-    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor import Replicate, Shard
 
-    from repro_torch.distributed.sharding import PartitionSpec, act_spec, mesh_axes
+    from repro_torch.distributed.sharding import PartitionSpec, act_spec
 
-    axes = list(mesh_axes(mesh))
-    if "model" not in axes or w.placements[axes.index("model")] != Shard(0):
+    part = [p.is_partial() for p in xe.placements]
+    if any(part):
+        d = xe.ndim - 1
+        mid = list(xe.placements)
+        i = part.index(True)
+        if xe.shape[d] % mesh.size(i) == 0 and Shard(d) not in mid:
+            mid[i] = Shard(d)
+        xe = _redistributed(_redistributed(xe, mid),
+                            [Replicate() if q else p for p, q in zip(mid, part)])
+    if _ep_dim(w) is None:
         return xe
     spec = [None] * xe.ndim
     if xe.ndim == 4:                       # grouped: (B, E, C, d)
@@ -134,47 +174,34 @@ def _per_expert(x, w):
 
 
 def _experts_ffn(p, xe, dtype):
-    """xe (..., E, C, d) through each expert's SwiGLU.  On a mesh whose
-    "model" axis splits the experts, the tokens go in split over the
-    experts (``_expert_split``).  The combine einsum then flattens C with
-    E, which ``DTensor`` refuses when C does not divide that axis
-    (deepseek-v2's C = 39 on 16): there the outputs come out replicated
-    over "model", one all-gather of (..., E, C, d) a chunk."""
-    split = _expert_split(xe, p.w_gate)
-    h = F.silu(_per_expert(split, p.w_gate.to(dtype)))
-    h = h * _per_expert(split, p.w_up.to(dtype))
-    y = _per_expert(h, p.w_down.to(dtype))
-    names = y.device_mesh.mesh_dim_names if split is not xe else ()
-    if "model" not in names or y.shape[-2] % y.device_mesh.size(names.index("model")) == 0:
-        return y
-    from torch.distributed.tensor import Replicate
-
-    return y.redistribute(y.device_mesh, [Replicate() if n == "model" else pl
-                                          for n, pl in zip(names, y.placements)])
+    """xe (..., E, C, d) through each expert's SwiGLU, on a mesh whose
+    "model" axis splits the experts each device over its own
+    (``_expert_split``)."""
+    xe = _expert_split(xe, p.w_gate)
+    h = F.silu(_per_expert(xe, p.w_gate.to(dtype)))
+    h = h * _per_expert(xe, p.w_up.to(dtype))
+    return _per_expert(h, p.w_down.to(dtype))
 
 
-def _split_like_experts(mask, ye):
-    """The combine mask (..., E, C) and the expert outputs ``ye`` (..., E,
-    C, d), split over their experts and batch alike (``ye`` also over d)
-    and whole otherwise: the mask by a local slice where it is replicated.
-    The combine then contracts each device's own experts into a partial
-    sum, as XLA partitions ``repro``'s combine; left alone, ``DTensor``
-    gathers ``ye``'s experts and every device combines all of them, and a
-    split of C would sit inside the (E, C) fold the ``einsum`` makes, which
-    torch 2.11 refuses.  (The combine's subscripts name C ``f``, after E:
-    ``einsum`` folds its summed dims in letter order, and E, the split
-    one, must come first.)  The identity off a mesh."""
-    if not (is_dtensor(mask) and is_dtensor(ye)):
-        return mask, ye
-    from torch.distributed.tensor import Replicate, Shard
-
-    e, d = ye.ndim - 3, ye.ndim - 1        # ye's expert dim: 1 if grouped
-    mp, yp = [], []
-    for py in ye.placements:
-        batch = bool(e) and py == Shard(0)
-        yp.append(py if py in (Shard(e), Shard(d)) or batch else Replicate())
-        mp.append(Shard(mask.ndim - 2) if py == Shard(e) else py if batch else Replicate())
-    return mask.redistribute(mask.device_mesh, mp), ye.redistribute(ye.device_mesh, yp)
+def _dispatch_combine(p, routes, gate_vals, C: int, xc, spec: str):
+    """GShard's dispatch and combine around the experts: ``spec`` is the
+    dispatch's ``einsum`` (``"nec,nd->ecd"`` flat, ``"bsec,bsd->becd"``
+    grouped).  On a mesh whose "model" axis splits the experts, as XLA
+    partitions ``repro``'s: the tokens come whole over "model"
+    (``moe_apply``) and each device slices its own experts' columns of
+    the one-hot masks (no collective: the routing is whole there), so the
+    dispatch writes its experts' slots with no partial sum; the combine
+    contracts its own experts into a partial sum, reduced once
+    (``reduce_partial``).  In the backward each product again covers its
+    own experts, and the gates' gradients reduce as (.., k) sums, not as
+    masks.  (The combine's subscripts name C ``f``, after E: ``einsum``
+    folds its summed dims in letter order, and E, the split one, must
+    come first.)"""
+    dispatch, combine = _masks(routes, gate_vals, C, _ep_dim(p.w_gate))
+    xe = torch.einsum(spec, dispatch.to(xc.dtype), xc)
+    ye = _experts_ffn(p, xe, xc.dtype)
+    out = "nef,efd->nd" if spec[0] == "n" else "bsef,befd->bsd"
+    return reduce_partial(torch.einsum(out, combine.to(xc.dtype), ye), xc.ndim - 2)
 
 
 def _chunk_moe(p, xc, cfg):
@@ -205,21 +232,18 @@ def _chunk_moe(p, xc, cfg):
             yc = yc + ye[slot] * g[:, None]
         return yc, lb_loss, z_loss
 
-    dispatch, combine = _masks(routes, gate_vals, C)
-    xe = torch.einsum("nec,nd->ecd", dispatch.to(xc.dtype), xc)
-    ye = _experts_ffn(p, xe, xc.dtype)
-    combine, ye = _split_like_experts(combine.to(xc.dtype), ye)
-    yc = reduce_partial(torch.einsum("nef,efd->nd", combine, ye), 1)
-    return yc, lb_loss, z_loss
+    return _dispatch_combine(p, routes, gate_vals, C, xc, "nec,nd->ecd"), lb_loss, z_loss
 
 
-def _masks(routes, gate_vals, C: int):
-    """GShard's (..., E, C) dispatch (bool) and combine (float32) masks."""
+def _masks(routes, gate_vals, C: int, ep_dim=None):
+    """GShard's (..., E, C) dispatch (bool) and combine (float32) masks;
+    with ``ep_dim``, each choice's one-hot split over E on that mesh dim
+    before its gate multiplies it."""
     iota_c = torch.arange(C, dtype=torch.int32, device=gate_vals.device)
     dispatch = combine = None
     for j, (_, pos_tok, oh_e) in enumerate(routes):
         oh_c = (pos_tok[..., None] == iota_c) & (pos_tok < C)[..., None]
-        dm = oh_e[..., None] & oh_c[..., None, :]
+        dm = _placed(oh_e[..., None] & oh_c[..., None, :], ep_dim, oh_e.ndim - 1)
         term = dm * gate_vals[..., j, None, None]
         dispatch = dm if dispatch is None else dispatch | dm
         combine = term if combine is None else combine + term
@@ -237,52 +261,106 @@ def _grouped_chunk_moe(p, xc, cfg):
     logits, probs = _router(p, xc)
     gate_vals, expert_idx = _top_k(probs, k)               # (B, Sc, k)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
-    dispatch, combine = _masks(_slots(expert_idx, E, axis=1), gate_vals, C)
-
-    xe = torch.einsum("bsec,bsd->becd", dispatch.to(xc.dtype), xc)
-    ye = _experts_ffn(p, xe, xc.dtype)
-    combine, ye = _split_like_experts(combine.to(xc.dtype), ye)
-    yc = reduce_partial(torch.einsum("bsef,befd->bsd", combine, ye), 1)
+    routes = _slots(expert_idx, E, axis=1)
     lb_loss, z_loss = _aux(probs, logits, expert_idx, E, (0, 1))
-    return yc, lb_loss, z_loss
+    return _dispatch_combine(p, routes, gate_vals, C, xc, "bsec,bsd->becd"), lb_loss, z_loss
+
+
+def _run_chunks(chunk_fn, src, cfg, dim: int, size: int, remat: bool):
+    """Every chunk of ``size`` along ``dim`` of the loop's input in order:
+    (the chunks' outputs joined along ``dim``, the summed load-balance and
+    z losses).  With ``remat``, each chunk a ``checkpoint``."""
+    x = src.get()[0]
+    lb = z = x.new_zeros((), dtype=torch.float32)   # a DTensor on a mesh
+    ys = []
+    for c in range(x.shape[dim] // size):
+        if remat:
+            yc, lb_c, z_c = checkpoint(_chunk, chunk_fn, src, c, cfg, dim, size,
+                                       use_reentrant=False)
+        else:
+            yc, lb_c, z_c = _chunk(chunk_fn, src, c, cfg, dim, size)
+        lb, z = lb + lb_c, z + z_c
+        ys.append(yc)
+    return torch.cat(ys, dim), lb, z
+
+
+def _chunk(chunk_fn, src, c, cfg, dim, size):
+    x, *ws = src.get()
+    return chunk_fn(SimpleNamespace(**dict(zip(_ROUTED, ws))), x.narrow(dim, c * size, size), cfg)
+
+
+class _SaveInputs(torch.autograd.Function):
+    """Its inputs, saved for a backward and passed on."""
+
+    @staticmethod
+    def forward(ctx, *ts):
+        ctx.save_for_backward(*ts)
+        return tuple(t.view_as(t) for t in ts)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return grads
+
+
+class _LoopInputs:
+    """The routed loop's input and weights.  With gradients on they pass
+    through ``_SaveInputs``, which saves them before the shared experts and
+    the first chunk run, and a chunk's ``checkpoint`` (``moe_remat``) takes
+    no tensor: it reads them here, from the tensors themselves while the
+    forward runs and from the saved ones when it recomputes.  So every
+    tensor that a remat period's recompute must rebuild is saved before the
+    loop runs, and that recompute stops there (``checkpoint``'s early
+    stop): each chunk runs once forward and once in the backward, as in
+    ``repro``'s compiled step, where XLA drops the loop's recompute in the
+    period, whose outputs its backward never reads.  (A ``checkpoint`` a
+    chunk with its own inputs would run every chunk but the last three
+    times.)  The loop's gradients gather at the one node with or without
+    ``moe_remat``, so both sum them in the same order."""
+
+    def __init__(self, x, ws):
+        self.saver = None
+        self.ts = (x, *ws)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in self.ts):
+            self.ts = _SaveInputs.apply(*self.ts)
+            self.saver = self.ts[0].grad_fn
+
+    def forward_done(self):
+        if self.saver is not None:
+            self.ts = None
+
+    def get(self):
+        if self.ts is None:   # a recompute: unpack once (``checkpoint`` allows one)
+            self.ts = tuple(self.saver.saved_tensors)
+        return self.ts
+
+
+_ROUTED = ("router", "w_gate", "w_up", "w_down")
 
 
 def moe_apply(p, x, cfg):
     """x (B, S, d) -> (y (B, S, d), aux dict of scalar losses)."""
     B, S, d = x.shape
-    lb = z = x.new_zeros((), dtype=torch.float32)   # a DTensor on a mesh
-    ys = []
-    remat = cfg.moe_remat and torch.is_grad_enabled()
-
-    def run(chunk_fn, xc):
-        if remat:
-            return checkpoint(chunk_fn, p, xc, cfg, use_reentrant=False)
-        return chunk_fn(p, xc, cfg)
-
+    # on a mesh that splits the experts, the tokens whole over "model" once,
+    # for the router, the dispatch and the shared experts
+    x = _placed(x, _ep_dim(p.w_gate))
     if cfg.moe_group == "seq":
-        Sc = max(1, min(cfg.moe_group_seq, S))
-        n_chunks = -(-S // Sc)
-        pad = n_chunks * Sc - S
-        xg = pad_seq(x, pad)
-        for c in range(n_chunks):
-            yc, lb_c, z_c = run(_grouped_chunk_moe, xg[:, c * Sc:(c + 1) * Sc])
-            lb, z = lb + lb_c, z + z_c
-            ys.append(yc)
-        y = torch.cat(ys, dim=1)[:, :S]
+        chunk_fn, dim, size = _grouped_chunk_moe, 1, max(1, min(cfg.moe_group_seq, S))
+        n_chunks = -(-S // size)
+        xs = pad_seq(x, n_chunks * size - S)
     else:
         N = B * S
-        chunk = min(cfg.moe_chunk, N)
-        n_chunks = -(-N // chunk)
-        pad = n_chunks * chunk - N
-        xf = x.reshape(N, d)
+        chunk_fn, dim, size = _chunk_moe, 0, min(cfg.moe_chunk, N)
+        n_chunks = -(-N // size)
+        pad = n_chunks * size - N
+        xs = x.reshape(N, d)
         if pad:
-            xf = torch.cat([xf, xf.new_zeros((pad, d))])
-        for c in range(n_chunks):
-            yc, lb_c, z_c = run(_chunk_moe, xf[c * chunk:(c + 1) * chunk])
-            lb, z = lb + lb_c, z + z_c
-            ys.append(yc)
-        y = torch.cat(ys)[:N].reshape(B, S, d)
-
-    if cfg.n_shared_experts:
-        y = y + mlp_apply(p.shared, x, "silu")
+            xs = torch.cat([xs, xs.new_zeros((pad, d))])
+    src = _LoopInputs(xs, [getattr(p, name) for name in _ROUTED])
+    shared = mlp_apply(p.shared, x, "silu") if cfg.n_shared_experts else None
+    remat = cfg.moe_remat and src.saver is not None
+    y, lb, z = _run_chunks(chunk_fn, src, cfg, dim, size, remat)
+    src.forward_done()
+    y = y[:, :S] if dim else y[:N].reshape(B, S, d)
+    if shared is not None:
+        y = y + shared
     return y, {"moe_lb_loss": lb / n_chunks, "moe_z_loss": z / n_chunks}

@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.layers import dense_init_, linear, new_param
+from repro_torch.models.layers import dense_init_, gather_operand, linear, new_param
 
 __all__ = ["RGLRU", "rglru_apply", "rglru_decode_step"]
 
@@ -61,6 +61,7 @@ class RGLRU(nn.Module):
 
 
 def _gates(p, u):
+    u = gather_operand(u, p.w_r, p.w_i)
     r = torch.sigmoid(linear(u, p.w_r).float() + p.b_r.float())
     i = torch.sigmoid(linear(u, p.w_i).float() + p.b_i.float())
     a = torch.exp(-_C * F.softplus(p.lam) * r)
@@ -94,6 +95,7 @@ def _linear_scan(a, b):
 
 def rglru_apply(p, x, *, conv_state=None, h_state=None):
     """Full-sequence block. x (B,S,d) -> (y (B,S,d), (h_last, conv_state))."""
+    x = gather_operand(x, p.w_gate, p.w_x)
     gate = F.gelu(linear(x, p.w_gate), approximate="tanh")
     u = linear(x, p.w_x)
     u, conv_state = _conv(p, u, conv_state)
@@ -101,7 +103,7 @@ def rglru_apply(p, x, *, conv_state=None, h_state=None):
     if h_state is not None:                    # inject carried state as step 0
         b = torch.cat([b[:, :1] + a[:, :1] * h_state.float()[:, None], b[:, 1:]], 1)
     h = _linear_scan(a, b)
-    y = linear(h.to(x.dtype) * gate, p.w_out)
+    y = linear(h.to(x.dtype) * gate, p.w_out, reduce_dims=(1,))
     return y, (h[:, -1], conv_state)
 
 

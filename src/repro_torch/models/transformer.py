@@ -33,6 +33,7 @@ from repro_torch.models.layers import (
     cache_write,
     constrain,
     dense_init_,
+    gather_operand,
     is_dtensor,
     linear,
     mlp_apply,
@@ -192,6 +193,7 @@ def _ring_kpos(pos: int, Wd: int, device):
 
 def _attn_qkv(p, x, positions, cfg):
     Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    x = gather_operand(x, p.wq, p.wk, p.wv)
     q = split_heads(linear(x, p.wq), Hq, Dh)
     k = split_heads(linear(x, p.wk), Hkv, Dh)
     v = split_heads(linear(x, p.wv), Hkv, Dh)
@@ -210,7 +212,7 @@ def _attn_block(p, x, cfg, positions, mode, cache, pos):
         out = attention(q, k, v, q_pos=positions, k_pos=positions,
                         causal=cfg.causal, window=cfg.window,
                         q_chunk=cfg.attn_q_chunk, chunk_remat=cfg.attn_chunk_remat)
-        y = linear(out.reshape(B, S, -1), p.wo)
+        y = linear(out.reshape(B, S, -1), p.wo, reduce_dims=(1,))
         if mode == "prefill":
             if cfg.window and cfg.window < S:          # ring buffer: last Wd keys
                 # key S - Wd + j goes to slot (S - Wd + j) % Wd: a roll by
@@ -342,41 +344,57 @@ def make_constrainer(mesh):
     return constrain_residual
 
 
-def _period_ends(cfg) -> list[bool]:
-    """For each layer in model order, whether it ends a period of its
-    segment (``repro`` constrains the residual before each block of a
-    period and after its last)."""
-    ends = []
+def _periods(cfg) -> list[tuple[int, int, bool]]:
+    """``(first layer, layers, scanned)`` for each period of each segment,
+    in layer order; a plain segment is one period of one layer."""
+    out, i = [], 0
     for seg in plan_segments(cfg):
         n = len(seg.specs)
-        ends.extend([j == n - 1 for j in range(n)] * seg.count)
-    return ends
+        for _ in range(seg.count):
+            out.append((i, n, seg.kind == "scan"))
+            i += n
+    return out
+
+
+def _period_apply(layers, x, cfg, positions, mode, caches, pos, constrain_residual):
+    """One period's blocks (``repro``'s ``_period_apply``): the residual is
+    constrained before each block and after the last.  Returns (x, aux
+    (lb, z) summed over its MoE blocks, or None)."""
+    aux = None
+    for i, layer in enumerate(layers):
+        if constrain_residual is not None:
+            x = constrain_residual(x)
+        x, a = _block_apply(layer, x, cfg, positions, mode,
+                            caches[i] if caches is not None else None, pos)
+        if a is not None:
+            aux = a if aux is None else (aux[0] + a[0], aux[1] + a[1])
+    if constrain_residual is not None:
+        x = constrain_residual(x)
+    return x, aux
 
 
 def apply_stack(layers, x, cfg, positions, mode, caches=None, pos=None):
-    """Run every layer in order.  Returns (x, {"lb": ..., "z": ...}); in
-    ``prefill`` and ``decode`` mode ``caches`` (one dict a layer) is updated
-    in place.  Mode ``train`` takes no cache, so a recomputed block never
-    reads a tensor written since its forward.  Under ``use_sharding_mesh``
-    the residual is constrained where ``repro``'s ``_period_apply`` does:
-    before each block of a period and after the period's last block."""
+    """Run every layer in order, a period at a time.  Returns (x, {"lb":
+    ..., "z": ...}); in ``prefill`` and ``decode`` mode ``caches`` (one
+    dict a layer) is updated in place.  With ``cfg.remat``, mode ``train``
+    recomputes each period of a scanned segment in the backward as one
+    checkpoint, as ``repro`` wraps its scan body, and no plain segment's
+    layer, as ``repro`` runs those outside any ``jax.checkpoint``.  Mode
+    ``train`` takes no cache, so a recomputed period never reads a tensor
+    written since its forward.  Under ``use_sharding_mesh`` the residual is
+    constrained where ``repro``'s ``_period_apply`` does."""
     if mode == "train" and caches is not None:
         raise ValueError("mode 'train' writes no cache; got caches")
     remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
     constrain_residual = make_constrainer(sharding_mesh())
-    ends = _period_ends(cfg) if constrain_residual is not None else None
     lb = z = x.new_zeros((), dtype=torch.float32)   # a DTensor on a mesh
-    for i, layer in enumerate(layers):
-        c = caches[i] if caches is not None else None
-        if constrain_residual is not None:
-            x = constrain_residual(x)
-        if remat:
-            x, aux = checkpoint(_block_apply, layer, x, cfg, positions, mode, c, pos,
-                                use_reentrant=False)
+    for i, n, scanned in _periods(cfg):
+        args = (layers[i:i + n], x, cfg, positions, mode,
+                caches[i:i + n] if caches is not None else None, pos, constrain_residual)
+        if remat and scanned:
+            x, aux = checkpoint(_period_apply, *args, use_reentrant=False)
         else:
-            x, aux = _block_apply(layer, x, cfg, positions, mode, c, pos)
-        if constrain_residual is not None and ends[i]:
-            x = constrain_residual(x)
+            x, aux = _period_apply(*args)
         if aux is not None:
             lb, z = lb + aux[0], z + aux[1]
     return x, {"lb": lb, "z": z}

@@ -130,6 +130,42 @@ def test_serial_tail_step_matches_repro(kind):
     np.testing.assert_array_equal(np.asarray(want), got.numpy())
 
 
+@pytest.mark.parametrize("provider", ["csr", "dense"])
+def test_provider_tail_matches_repro(provider):
+    """``provider_tail`` over a ``DeviceCSR`` and a ``DenseRows`` provider."""
+    g = GRAPHS["powerlaw"]()
+    dev, tdev, colors, _, _ = _inputs(g, 43)
+    wl = np.concatenate([np.arange(3, g.n, 5, dtype=np.int32), [g.n]])
+    wl = np.asarray(C.order_tail(jnp.asarray(wl), dev.deg_ext))
+    if provider == "dense":
+        adj = np.asarray(dev.gather_rows(jnp.arange(g.n, dtype=jnp.int32), dev.max_width))
+        dev, tdev = C.DenseRows(jnp.asarray(adj)), TC.DenseRows(_t(adj), tdev)
+    want = C.provider_tail(dev, jnp.asarray(colors), jnp.asarray(wl))
+    colors_ext = _t(colors)
+    got = TC.provider_tail(tdev, colors_ext, _t(wl))
+    assert got is colors_ext
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+
+
+def test_ffs_u32_matches_repro():
+    """Every bit alone, zero, all ones, and random words (bit 31 set in
+    about half): ``repro`` on uint32, the port on the same bits in int32."""
+    from repro.core.firstfit import ffs_u32
+    from repro_torch.core.firstfit import ffs_u32 as t_ffs_u32
+
+    rng = np.random.default_rng(47)
+    words = np.concatenate([np.uint32(1) << np.arange(32, dtype=np.uint32),
+                            np.array([0, 0xFFFFFFFF, 0x80000000], np.uint32),
+                            rng.integers(0, 2 ** 32, 500, dtype=np.uint64).astype(np.uint32),
+                            rng.integers(0, 2 ** 32, 200, dtype=np.uint64).astype(np.uint32)
+                            & ~np.uint32(0xFFFF)]).reshape(-1, 5)
+    want = np.asarray(ffs_u32(jnp.asarray(words)))
+    got = t_ffs_u32(torch.from_numpy(words.view(np.int32)))
+    assert got.dtype == torch.int32 and got.shape == tuple(words.shape)
+    np.testing.assert_array_equal(want, got.numpy())
+    assert t_ffs_u32(torch.zeros((0,), dtype=torch.int32)).shape == (0,)
+
+
 def test_device_csr_matches_repro():
     g = GRAPHS["powerlaw"]()
     dev = DeviceCSR.from_csr(g)

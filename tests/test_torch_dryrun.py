@@ -7,14 +7,19 @@ CPU, mirroring ``tests/test_dryrun.py`` and held against ``repro``'s.
 * the CLI traces qwen3-4b's ``decode_32k`` at full size on a 2x4 mesh, as
   ``tests/test_distributed.py::test_dryrun_cell_on_tiny_mesh`` asks of
   ``repro`` (which fails there on JAX 0.9: its mesh has Explicit axes);
-* the slice against ``repro``: reduced qwen3-4b, rwkv6-1.6b and
-  mixtral-8x22b at ``train_4k``'s mode cut to batch 8 and sequence 64 on a
-  2x2 mesh (the reduced configs' chunk sizes would unroll 128 attention
-  chunks a layer at 4,096).  ``repro`` compiles for 4 host devices on a
-  mesh of Auto axes the test builds; the port traces on a fake group of 4.
-  Per-device FLOPs agree within 2% for qwen3-4b; rwkv6-1.6b and
-  mixtral-8x22b are held within bounds of the gaps PERF.md §6 explains op
-  by op (``tests/dryrun_compare.py`` prints them);
+* the slice against ``repro``: reduced qwen3-4b, rwkv6-1.6b,
+  mixtral-8x22b, deepseek-v2-236b and recurrentgemma-2b at ``train_4k``'s
+  mode cut to batch 8 and sequence 64 on a 2x2 mesh (the reduced configs'
+  chunk sizes would unroll 128 attention chunks a layer at 4,096).
+  ``repro`` compiles for 4 host devices on a mesh of Auto axes the test
+  builds; the port traces on a fake group of 4.  Per-device FLOPs agree
+  within 2% (rwkv6-1.6b within the bound of the gap PERF.md §6 explains op
+  by op; ``tests/dryrun_compare.py --by-op`` prints it), and the MoE
+  families' and recurrentgemma's collective bytes stay within 1.15x;
+* reduced mixtral-8x22b and deepseek-v2-236b train steps with no mesh
+  (also with several chunks a layer, and the flat and scatter dispatch)
+  run each MoE chunk once forward and once in the backward, and each
+  attention q-chunk as often as ``repro``'s FLOP count says;
 * a prefill cell at full size (qwen3-4b ``prefill_32k`` on 16x16) holds
   only each rank's share of the caches, not the global caches.
 
@@ -36,19 +41,20 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 import dryrun_compare  # noqa: E402
 
-COMPARED = ("qwen3-4b", "rwkv6-1.6b", "mixtral-8x22b")
-# port / repro per-device FLOPs at the cut cell: the bounds of the gaps
-# PERF.md §6 explains op by op (tests/dryrun_compare.py --by-op).  rwkv6:
-# the chunked WKV's batched products, -5.62% in the record; mixtral: at most
-# the +11.94% of the port's second recompute of the one-chunk MoE loop (a
-# port inefficiency, ROADMAP B16), and no less than repro's count
-BOUNDS = {"qwen3-4b": (0.98, 1.02), "rwkv6-1.6b": (0.94, 1.06),
-          "mixtral-8x22b": (0.98, 1.13)}
+COMPARED = ("qwen3-4b", "rwkv6-1.6b", "mixtral-8x22b", "deepseek-v2-236b",
+            "recurrentgemma-2b")
+# port / repro per-device FLOPs at the cut cell.  rwkv6: the chunked WKV's
+# batched products, -5.62% in the record (PERF.md §6,
+# tests/dryrun_compare.py --by-op)
+BOUNDS = {arch: (0.98, 1.02) for arch in COMPARED} | {"rwkv6-1.6b": (0.94, 1.06)}
+# port / repro per-device collective bytes at the cut cell, at most
+COLLECTIVE_BOUNDS = {"mixtral-8x22b": 1.15, "deepseek-v2-236b": 1.15,
+                     "recurrentgemma-2b": 1.15}
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The CLI cell and the six comparison processes, started together."""
+    """The CLI cells and the ten comparison processes, started together."""
     out = tmp_path_factory.mktemp("dryrun") / "res.json"
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1")
     cli = subprocess.Popen(
@@ -233,6 +239,89 @@ def test_dryrun_flops_against_repro(runs, arch):
     assert port > 0 and repro > 0
     lo, hi = BOUNDS[arch]
     assert lo <= port / repro <= hi, (port, repro)
+
+
+@pytest.mark.parametrize("arch", sorted(COLLECTIVE_BOUNDS))
+def test_dryrun_collective_bytes_against_repro(runs, arch):
+    got = runs["compared"][arch]
+    port, repro = got["port"]["collective_bytes"], got["repro"]["collective_bytes"]
+    assert port > 0 and repro > 0
+    assert port / repro <= COLLECTIVE_BOUNDS[arch], (port, repro)
+
+
+def count_chunk_calls(arch: str, seq: int = 64, batch: int = 2, **overrides) -> dict:
+    """Calls of the MoE chunk functions and of ``_attend_block`` in one
+    reduced train step (loss and backward) of ``arch`` on the CPU, with no
+    mesh: ``{"forward": {...}, "step": {...}}``.  The functions are wrapped
+    from here; the package has no switch for it."""
+    import collections
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers, moe
+    from repro_torch.models.model import build_model
+
+    counts: collections.Counter = collections.Counter()
+    saved = {}
+
+    def wrap(mod, name):
+        fn = saved[mod, name] = getattr(mod, name)
+
+        def counted(*args, **kwargs):
+            counts[name] += 1
+            return fn(*args, **kwargs)
+
+        setattr(mod, name, counted)
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), **overrides)
+    model = build_model(cfg, device="cpu")
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    rng = torch.Generator().manual_seed(1)
+    batch_ = {k: torch.randint(0, cfg.vocab, v.shape, generator=rng, dtype=v.dtype)
+              for k, v in model.input_specs(batch, seq).items()}
+    for mod, name in ((moe, "_chunk_moe"), (moe, "_grouped_chunk_moe"),
+                      (layers, "_attend_block")):
+        wrap(mod, name)
+    try:
+        loss, _ = model.loss(batch_)
+        forward = dict(counts)
+        loss.backward()
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+    return {"forward": forward, "step": dict(counts)}
+
+
+@pytest.mark.parametrize("arch,overrides", [
+    ("mixtral-8x22b", {}),
+    ("deepseek-v2-236b", {}),
+    ("mixtral-8x22b", {"moe_group_seq": 16, "attn_q_chunk": 16}),
+    ("deepseek-v2-236b", {"moe_group": "flat", "moe_chunk": 32}),
+    ("mixtral-8x22b", {"moe_group": "flat", "moe_chunk": 32, "moe_dispatch": "scatter"}),
+])
+def test_moe_chunks_run_once_in_the_backward(arch, overrides):
+    """With ``remat``, ``moe_remat`` and ``attn_chunk_remat`` on, each MoE
+    chunk runs once forward and once more in the backward, as in
+    ``repro``'s compiled step (the period's recompute stops before the
+    chunk loop).  The q-chunked attention runs three times a chunk in a
+    remat period (forward, the period's recompute, its own), as
+    ``repro``'s FLOP count shows XLA keeps both recomputes, and twice in a
+    plain layer (deepseek-v2's dense layer 0)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import plan_segments
+
+    cfg = get_config(arch).reduced()
+    assert cfg.remat and cfg.moe_remat and cfg.attn_chunk_remat
+    got = count_chunk_calls(arch, **overrides)
+    name = "_grouped_chunk_moe" if overrides.get("moe_group", cfg.moe_group) == "seq" \
+        else "_chunk_moe"
+    fwd = got["forward"][name]
+    assert fwd >= 1 and got["step"][name] == 2 * fwd, got
+    n_attn = 64 // overrides.get("attn_q_chunk", cfg.attn_q_chunk)
+    scanned = sum(len(s.specs) * s.count for s in plan_segments(cfg) if s.kind == "scan")
+    plain = cfg.n_layers - scanned
+    assert got["forward"]["_attend_block"] == cfg.n_layers * n_attn
+    assert got["step"]["_attend_block"] == (3 * scanned + 2 * plain) * n_attn, got
 
 
 def test_production_mesh():

@@ -314,9 +314,11 @@ def _grads(cfg, batch):
 
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_remat_gradients_equal(arch):
-    """``remat``, ``moe_remat`` and ``attn_chunk_remat`` on (each block,
-    each MoE chunk and each attention q-chunk recomputed in the backward)
-    against all three off: the same loss and gradients, bit for bit."""
+    """``remat``, ``moe_remat`` and ``attn_chunk_remat`` on (each period
+    of a scanned segment, each MoE chunk and each attention q-chunk
+    recomputed in the backward; a plain segment's layer is not, as in
+    ``repro``) against all three off: the same loss and gradients, bit for
+    bit."""
     on = get_config(arch).reduced()
     assert on.remat and on.moe_remat and on.attn_chunk_remat
     off = dataclasses.replace(on, remat=False, moe_remat=False, attn_chunk_remat=False)
@@ -324,7 +326,8 @@ def test_remat_gradients_equal(arch):
     real = transformer.checkpoint
     with mock.patch.object(transformer, "checkpoint", side_effect=real) as spy:
         loss_on, g_on = _grads(on, batch)
-    assert spy.call_count == on.n_layers
+    periods = sum(s.count for s in transformer.plan_segments(on) if s.kind == "scan")
+    assert spy.call_count == periods
     loss_off, g_off = _grads(off, batch)
     assert loss_on == loss_off
     for n in g_off:
