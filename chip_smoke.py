@@ -208,14 +208,19 @@ Phases, in order; any failure ends the run with a non-zero exit code:
              with phase 16's settings, step 0's loss and gradient norm
              within 1e-4 of phase 16's ``train_loop``, every step finite;
              steps 0-3 through ``make_train_step`` on a placed state, the
-             warm median ms beside phase 16's; (b) a checkpoint at step 4,
-             ``reshard_state`` onto a freshly built (1, 1) mesh (every leaf
-             a ``DTensor`` of the resolver's placement), steps 4-7 within
-             1e-3 of (a)'s losses; (c) the dry run of that step
+             warm median ms beside phase 16's; (b) qwen3-4b cut to 2 layers
+             at full width: a checkpoint at step 4, ``reshard_state`` onto
+             a freshly built (1, 1) mesh (every leaf a ``DTensor`` of the
+             resolver's placement), steps 4-7 within 1e-3 of the same
+             steps run on from the save; (c) the dry run of (a)'s step
              (``op_analysis`` on meta under a fake group, in a subprocess):
              per-device FLOPs and argument plus temporary bytes within 20%
              of phase 16's model FLOPs plus recompute and its peak less
-             what earlier phases hold.
+             what earlier phases hold; and reduced mixtral-8x22b's train
+             step with its MoE chunks over a split sequence (2x4, groups of
+             32 and 16 positions) and its flat path (2x2), each on a fake
+             group of its mesh's size: per-device FLOPs within 2% of
+             ``repro``'s counts, kept here.
 
 The line before the last is the kernels' JSON record, and the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
@@ -3680,7 +3685,23 @@ def check_training(dev_cuda) -> dict:
 
 MESH_STEP0_TOL = 1e-4    # phase 17 (a) against phase 16's train_loop, step 0
 MESH_RESUME_AT = 4       # phase 17 (b): the checkpoint's step
+MESH_CUT_LAYERS = 2      # phase 17 (b): qwen3-4b cut to this depth, full width
 DRYRUN_TOL = 0.20        # phase 17 (c): the dry run against phase 16's readings
+SPLIT_TOL = 0.02         # phase 17 (c): the split MoE chunks against repro's FLOPs
+# phase 17 (c): reduced mixtral-8x22b's train step (train_4k's mode at batch
+# 8, sequence 64, remat on) with its MoE chunks over a sequence that
+# "model" splits: (mesh, config overrides, repro's per-device FLOPs).
+# repro's counts: tests/dryrun_compare.py's repro side (JAX 0.9.0, XLA's CPU
+# compiler, a mesh of Auto axes over that many host devices); this host has
+# no JAX, so they are kept here
+SPLIT_CASES = {
+    "2x4, n_experts=3, moe_group_seq=32": ((2, 4), dict(n_experts=3, moe_group_seq=32),
+                                           256_315_392),
+    "2x4, n_experts=3, moe_group_seq=16": ((2, 4), dict(n_experts=3, moe_group_seq=16),
+                                           245_354_496),
+    "2x2, moe_group=flat, moe_chunk=128": ((2, 2), dict(moe_group="flat", moe_chunk=128),
+                                           964_468_736),
+}
 # the dry run of phase 16's step, on meta under a fake group of one (its own
 # process: a process group is global to a process)
 DRYRUN_PROBE = """
@@ -3692,6 +3713,19 @@ rec = run_cell("qwen3-4b", "train_4k", "single", mesh=mesh,
                info=dict(seq={seq}, batch={batch}, mode="train"))
 rec.pop("traceback", None)
 print(json.dumps(rec))
+"""
+# the dry run of a reduced config on a fake group of the mesh's world size
+SPLIT_PROBE = """
+import dataclasses, json, sys
+sys.path.insert(0, "src")
+from repro_torch.configs import get_config
+from repro_torch.launch.dryrun import build_step, make_mesh
+from repro_torch.launch.op_analysis import analyze_step
+mesh = make_mesh({shape}, ("data", "model"))
+cfg = dataclasses.replace(get_config("mixtral-8x22b").reduced(), **{overrides})
+step = build_step("mixtral-8x22b", "train_4k", mesh, cfg=cfg,
+                  info=dict(seq=64, batch=8, mode="train"))
+print(json.dumps({{"flops": analyze_step(step["fn"], mesh=mesh).flops}}))
 """
 
 
@@ -3736,12 +3770,16 @@ def check_mesh(dev_cuda, phase16: dict) -> dict:
     of world size 1, a ("data", "model") mesh of shape (1, 1)): (a)
     ``train_loop(mesh=)`` on qwen3-4b at full size in bfloat16 with phase
     16's settings, step 0 against phase 16's ``train_loop``; then its steps
-    0-3 through ``make_train_step`` on a placed state, timed, and a
-    checkpoint at step 4; (b) ``reshard_state`` of that checkpoint onto a
-    freshly built (1, 1) mesh (every leaf a ``DTensor`` of the resolver's
-    placement), then steps 4-7 against (a)'s; (c) the dry run of the same
-    step (``op_analysis`` on meta, a subprocess started after (a)'s timed
-    steps) against phase 16's model FLOPs and peak memory."""
+    0-3 through ``make_train_step`` on a placed state, timed; (b) qwen3-4b
+    cut to ``MESH_CUT_LAYERS`` layers at full width: steps 0-3, a
+    checkpoint at step 4, steps 4-7 run on (the reference), then
+    ``reshard_state`` of that checkpoint onto a freshly built (1, 1) mesh
+    (every leaf a ``DTensor`` of the resolver's placement) and steps 4-7
+    again against the reference; (c) the dry run of (a)'s step
+    (``op_analysis`` on meta, a subprocess started after (a)'s timed
+    steps) against phase 16's model FLOPs and peak memory, and the dry run
+    of each of ``SPLIT_CASES`` on a fake group of its mesh's size (a
+    subprocess each, started with it) against ``repro``'s FLOPs."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import DTensor
@@ -3756,7 +3794,7 @@ def check_mesh(dev_cuda, phase16: dict) -> dict:
           f"allocated", flush=True)
     cfg = get_config("qwen3-4b")
     B, S, steps = TRAIN_FULL["batch_size"], TRAIN_FULL["seq_len"], TRAIN_FULL["steps"]
-    probe = None
+    probes = {}
     nccl_group(dev_cuda)
     try:
         mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
@@ -3794,21 +3832,38 @@ def check_mesh(dev_cuda, phase16: dict) -> dict:
               f"{first[0][0]:.1f} ms, warm median {ms:.3f} ms against phase 16's "
               f"{phase16['ms']:.3f} ms without a mesh (x{ms / phase16['ms']:.3f}: the host "
               f"cost of DTensor dispatch), peak {peak:.1f} MiB; {card_line()}", flush=True)
-        # (c)'s trace takes the host's cores for 15-25 s: started after the
-        # timed steps, beside the checkpoint's I/O
-        probe = subprocess.Popen([sys.executable, "-c", DRYRUN_PROBE.format(seq=S, batch=B)],
-                                 cwd=str(Path(__file__).resolve().parent),
-                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        del model, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (c)'s traces take the host's cores for 15-25 s: started after the
+        # timed steps, beside (b)'s checkpoint I/O
+        root = str(Path(__file__).resolve().parent)
+        probes["qwen3-4b"] = subprocess.Popen(
+            [sys.executable, "-c", DRYRUN_PROBE.format(seq=S, batch=B)], cwd=root,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for case, (shape, overrides, _) in SPLIT_CASES.items():
+            probes[case] = subprocess.Popen(
+                [sys.executable, "-c", SPLIT_PROBE.format(shape=shape, overrides=overrides)],
+                cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+        cut = dataclasses.replace(cfg, n_layers=MESH_CUT_LAYERS)
+        data = SyntheticData.for_model(cut, B, S, seed=0)
+        model = build_model(cut, dev_cuda, generator=torch.Generator(device=dev_cuda).manual_seed(0))
+        state = init_train_state(model)
+        place_state(state, state_shardings(state, mesh))
+        mesh_steps(state, opt_cfg, data, 0, MESH_RESUME_AT, timed=False)
         with tempfile.TemporaryDirectory() as tmp:
             t = time.perf_counter()
             save_checkpoint(tmp, MESH_RESUME_AT, state)
             save_s = time.perf_counter() - t
+            disk = sum(f.stat().st_size for f in Path(tmp).rglob("*") if f.is_file())
+            ref = mesh_steps(state, opt_cfg, data, MESH_RESUME_AT, steps, timed=False)
             del model, state
             gc.collect()
             torch.cuda.empty_cache()
             fresh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
             t = time.perf_counter()
-            like = init_train_state(build_model(cfg, "meta"))
+            like = init_train_state(build_model(cut, "meta"))
             state = reshard_state(tmp, MESH_RESUME_AT, like, fresh)
             restore_s = time.perf_counter() - t
         want = state_shardings(state, fresh)
@@ -3819,29 +3874,34 @@ def check_mesh(dev_cuda, phase16: dict) -> dict:
                              and tuple(v.placements) == sh.placements
                              and v.device.type == fresh.device_type)]
         resumed = mesh_steps(state, opt_cfg, data, MESH_RESUME_AT, steps, timed=False)
-        err = max(abs(r[1] - want_l) for r, want_l in zip(resumed, losses[MESH_RESUME_AT:]))
-        print(f"  mesh checkpoint at step {MESH_RESUME_AT}: saved in {save_s:.1f} s, "
+        err = max(abs(r[1] - want_r[1]) for r, want_r in zip(resumed, ref))
+        print(f"  mesh checkpoint of qwen3-4b cut to {MESH_CUT_LAYERS} layers at full "
+              f"width at step {MESH_RESUME_AT} ({disk / 1e9:.2f} GB): saved in {save_s:.1f} s, "
               f"reshard_state onto a fresh (1, 1) mesh in {restore_s:.1f} s, {len(leaves)} "
               f"leaves, {len(misplaced)} not DTensors of the resolver's placement; steps "
               f"{MESH_RESUME_AT}-{steps - 1} losses {[round(r[1], 4) for r in resumed]} "
-              f"against (a)'s {[round(x, 4) for x in losses[MESH_RESUME_AT:]]} "
+              f"against the run on from the save {[round(r[1], 4) for r in ref]} "
               f"(|d| {err:.3g}, tolerance {TRAIN_RESTART_TOL})", flush=True)
-        if misplaced or not err <= TRAIN_RESTART_TOL:
+        if misplaced or not (len(resumed) == len(ref) == steps - MESH_RESUME_AT
+                             and err <= TRAIN_RESTART_TOL):
             fail(f"mesh reshard_state: {len(misplaced)} leaves misplaced, |dloss| {err}")
         del state, like
         gc.collect()
         torch.cuda.empty_cache()
     except BaseException:
-        if probe is not None:
+        for probe in probes.values():
             probe.kill()
         raise
     finally:
         dist.destroy_process_group()
 
-    stdout, stderr = probe.communicate(timeout=600)
-    if probe.returncode != 0:
-        fail(f"mesh dry run: exit {probe.returncode}: {stderr[-2000:]}")
-    rec = json.loads(stdout.strip().splitlines()[-1])
+    out = {}
+    for case, probe in probes.items():
+        stdout, stderr = probe.communicate(timeout=600)
+        if probe.returncode != 0:
+            fail(f"mesh dry run {case}: exit {probe.returncode}: {stderr[-2000:]}")
+        out[case] = json.loads(stdout.strip().splitlines()[-1])
+    rec = out["qwen3-4b"]
     if not rec.get("ok"):
         fail(f"mesh dry run: {rec.get('error')}")
     flops, mem = rec["analysis"]["flops"], rec["memory"]
@@ -3859,6 +3919,15 @@ def check_mesh(dev_cuda, phase16: dict) -> dict:
           f"{DRYRUN_TOL})", flush=True)
     if not (df <= DRYRUN_TOL and dm <= DRYRUN_TOL):
         fail(f"mesh dry run against the card: FLOPs {df}, memory {dm}")
+    for case, (shape, _, want) in SPLIT_CASES.items():
+        got = out[case]["flops"]
+        d = got / want - 1
+        print(f"  mesh dry run of reduced mixtral-8x22b's train step, {case}, on a fake "
+              f"group of {shape[0] * shape[1]} (torch {torch.__version__}): per-device FLOPs "
+              f"{got:.0f} against repro's {want} ({d:+.4%}; tolerance {SPLIT_TOL:.0%})",
+              flush=True)
+        if not abs(d) <= SPLIT_TOL:
+            fail(f"mesh dry run {case}: FLOPs {got} against repro's {want}")
     return {"ms": ms, "flops": flops, "dry_mib": dry_mib}
 
 

@@ -103,7 +103,12 @@ class _Recorder(TorchDispatchMode):
         if name in ("all_gather_into_tensor", "reduce_scatter_tensor"):
             n = int(args[1] if name == "all_gather_into_tensor" else args[2])
         else:   # the group's name is the last argument
-            n = self.group_sizes[str(args[-1])]
+            n = self.group_sizes.get(str(args[-1]))
+            if n is None:   # a group of a mesh made inside the step
+                from torch.distributed.distributed_c10d import _resolve_process_group
+
+                n = self.group_sizes[str(args[-1])] = _resolve_process_group(
+                    str(args[-1])).size()
         out_bytes = _nbytes(out)
         moved = coll_moved(op, out_bytes, n)
         c = self.cost

@@ -14,10 +14,15 @@ port of ``repro.models.moe``).
 * shared experts (DeepSeek-V2) run densely on every token;
 * ``moe_remat`` (with gradients on): each chunk is recomputed once in the
   backward, as ``repro``'s ``jax.checkpoint`` of its chunk loop, also inside
-  a remat period (``_LoopInputs``).
+  a remat period (``_LoopInputs``);
+* on a mesh, a chunk is placed as XLA places ``repro``'s reshape of the
+  tokens into chunks: split over the devices its positions span where
+  "model" splits the sequence (``_SeqSplit``), its features split over the
+  data axes where they split the flat tokens (``_flat_tokens``).
 """
 from __future__ import annotations
 
+import math
 from types import SimpleNamespace
 
 import torch
@@ -28,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models.layers import (
     MLP,
     constrain,
+    contiguous_stride,
     dense_init_,
     is_dtensor,
     linear,
@@ -151,7 +157,7 @@ def _expert_split(xe, w):
         d = xe.ndim - 1
         mid = list(xe.placements)
         i = part.index(True)
-        if xe.shape[d] % mesh.size(i) == 0 and Shard(d) not in mid:
+        if xe.shape[d] % xe.device_mesh.size(i) == 0 and Shard(d) not in mid:
             mid[i] = Shard(d)
         xe = _redistributed(_redistributed(xe, mid),
                             [Replicate() if q else p for p, q in zip(mid, part)])
@@ -160,8 +166,50 @@ def _expert_split(xe, w):
     spec = [None] * xe.ndim
     if xe.ndim == 4:                       # grouped: (B, E, C, d)
         spec[0] = act_spec(xe.shape[:1], mesh)[0]
+    elif _data_split_features(xe):         # flat, relaid (``_flat_tokens``)
+        spec[-1] = _data_axes(mesh)
     spec[-3] = "model"
     return constrain(xe, PartitionSpec(*spec), mesh)
+
+
+def _data_axes(mesh) -> tuple:
+    return tuple(n for n in mesh.mesh_dim_names if n != "model")
+
+
+def _data_split_features(t) -> bool:
+    """Whether the data axes split ``t``'s last dim, the features (the
+    flat loop's tokens after ``_flat_tokens``), and "model" does not."""
+    if not is_dtensor(t):
+        return False
+    names = t.device_mesh.mesh_dim_names or ()
+    feat = [p.is_shard() and p.dim == t.ndim - 1 for p in t.placements]
+    return (len(feat) > 1 and not feat[names.index("model")]
+            and all(f for f, n in zip(feat, names) if n != "model"))
+
+
+def _flat_tokens(xs, size: int, w):
+    """The flat loop's tokens (N, d) placed as XLA places ``repro``'s
+    ``xf.reshape(n_chunks, chunk, d)`` where the data axes split N, each
+    device holding whole chunks, and "model" splits the experts of ``w``
+    (the tokens whole over it): the loop runs every chunk on every device,
+    so the data axes' split moves from the tokens to the features (one
+    all-to-all), and the dispatch, the expert products (their FSDP split
+    of the features kept: no gather of the weights) and the dispatch's
+    backward each take the device's features.  Unchanged elsewhere."""
+    if not is_dtensor(xs) or _ep_dim(w) is None:
+        return xs
+    from torch.distributed.tensor import Shard
+
+    mesh, pl = xs.device_mesh, xs.placements
+    names = mesh.mesh_dim_names
+    data = [i for i, n in enumerate(names) if n != "model"]
+    n = math.prod(mesh.size(i) for i in data)
+    N, d = xs.shape
+    if (not pl[names.index("model")].is_replicate() or any(pl[i] != Shard(0) for i in data)
+            or (N // n) % size or N % n or d % n
+            or any(w.placements[i] != Shard(1) for i in data)):
+        return xs
+    return _redistributed(xs, [Shard(1) if i in data else p for i, p in enumerate(pl)])
 
 
 def _per_expert(x, w):
@@ -198,10 +246,27 @@ def _dispatch_combine(p, routes, gate_vals, C: int, xc, spec: str):
     folds its summed dims in letter order, and E, the split one, must
     come first.)"""
     dispatch, combine = _masks(routes, gate_vals, C, _ep_dim(p.w_gate))
+    if _is_split(xc):
+        tok = _token_placements(xc)
+        xe = _SplitDispatch.apply(dispatch.to(xc.dtype), xc, tok)
+        ye = _experts_ffn(p, xe, xc.dtype)
+        cm, ye = _SaveInputs.apply(combine.to(xc.dtype), ye)
+        return _SplitCombine.apply(cm, ye, tok, cm.grad_fn)
     xe = torch.einsum(spec, dispatch.to(xc.dtype), xc)
     ye = _experts_ffn(p, xe, xc.dtype)
+    if _data_split_features(ye):   # the combine takes every feature, as XLA's
+        from torch.distributed.tensor import Replicate
+
+        names = ye.device_mesh.mesh_dim_names
+        ye = _redistributed(ye, [p if n == "model" else Replicate()
+                                 for p, n in zip(ye.placements, names)])
     out = "nef,efd->nd" if spec[0] == "n" else "bsef,befd->bsd"
     return reduce_partial(torch.einsum(out, combine.to(xc.dtype), ye), xc.ndim - 2)
+
+
+def _is_split(xc) -> bool:
+    """Whether ``xc`` is a chunk placed by ``_SeqSplit``."""
+    return is_dtensor(xc) and (xc.device_mesh.mesh_dim_names or ())[-1:] == ("model_lo",)
 
 
 def _chunk_moe(p, xc, cfg):
@@ -266,27 +331,268 @@ def _grouped_chunk_moe(p, xc, cfg):
     return _dispatch_combine(p, routes, gate_vals, C, xc, "bsec,bsd->becd"), lb_loss, z_loss
 
 
-def _run_chunks(chunk_fn, src, cfg, dim: int, size: int, remat: bool):
-    """Every chunk of ``size`` along ``dim`` of the loop's input in order:
-    (the chunks' outputs joined along ``dim``, the summed load-balance and
-    z losses).  With ``remat``, each chunk a ``checkpoint``."""
+_FACTORED: dict = {}
+
+
+def _factored(mesh, m1: int, m2: int):
+    """``mesh`` with its last dim ("model") factored row-major into
+    ("model", "model_lo") of sizes (m1, m2): model rank ``hi * m2 + lo`` is
+    (hi, lo), so a tensor split over "model" is the same shard split over
+    both, nested (``Shard(k)`` on each).  One a (mesh, m1, m2)."""
+    key = (id(mesh), m1, m2)
+    if key not in _FACTORED:
+        from torch.distributed.device_mesh import DeviceMesh
+
+        ranks = mesh.mesh.reshape(*mesh.mesh.shape[:-1], m1, m2)
+        names = (*mesh.mesh_dim_names[:-1], "model", "model_lo")
+        _FACTORED[key] = (mesh, DeviceMesh(mesh.device_type, ranks, mesh_dim_names=names))
+    return _FACTORED[key][1]
+
+
+def _moved(t, mesh, placements, shape):
+    """``t``'s local shard as a ``DTensor`` of ``shape`` on ``mesh`` (the
+    same bytes on every rank; no collective), its gradient coming back
+    placed as ``t``."""
+    from torch.distributed.tensor import DTensor
+
+    local = t.to_local(grad_placements=t.placements).reshape(
+        [s // _split_of(placements, mesh, i) for i, s in enumerate(shape)])
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=torch.Size(shape), stride=contiguous_stride(shape))
+
+
+def _split_of(placements, mesh, dim: int) -> int:
+    return math.prod(mesh.size(i) for i, p in enumerate(placements)
+                     if p.is_shard() and p.dim == dim)
+
+
+class _SeqSplit:
+    """The chunks of the grouped loop placed as XLA places ``repro``'s
+    ``x.reshape(B, n_chunks, Sc, d)`` of a sequence split over "model"
+    (M devices, a share of S/M positions each): the split carries over
+    the reshape, so a chunk that spans m2 = Sc / share devices stays
+    split over them (each keeps its share of every chunk), and the
+    other factor, m1 = M / m2, splits the chunks (m1 = n_chunks), or,
+    where a chunk lies inside one share (m2 = 1), the shares' chunks.
+    The loop then runs every chunk on every device, so the chunks come
+    whole over m1 (one gather before the loop); inside a chunk the
+    routing, the slot ``cumsum``, the dispatch and the combine run on
+    the device's share (``_SplitDispatch``, ``_SplitCombine``).  On the
+    factored mesh (``_factored``: "model" of size m1, "model_lo" of m2)
+    the tokens are split over "model_lo" and whole over "model"."""
+
+    def __init__(self, mesh, m1: int, m2: int, shape):
+        self.mesh, self.mesh3 = mesh, _factored(mesh, m1, m2)
+        self.m2, self.shape = m2, shape
+
+    @staticmethod
+    def of(xs, size: int, cfg):
+        """The split of ``xs`` (B, S, d), or None where no "model" axis
+        splits its sequence alone, or the shares do not tile the chunks."""
+        if not is_dtensor(xs) or cfg.moe_dispatch != "einsum":
+            return None
+        from torch.distributed.tensor import Shard
+
+        mesh, pl = xs.device_mesh, xs.placements
+        names = mesh.mesh_dim_names or ()
+        M = mesh.size(mesh.ndim - 1)
+        if (M == 1 or names[-1:] != ("model",) or pl[-1] != Shard(1)
+                or any(not (p.is_replicate() or p == Shard(0)) for p in pl[:-1])):
+            return None
+        B, S, d = xs.shape
+        share = S // M
+        if S % M or (size % share if size >= share else share % size):
+            return None
+        m2 = max(1, size // share)
+        m1 = M // m2
+        if d % m1:
+            return None
+        return _SeqSplit(mesh, m1, m2, (B, S // size, size, d))
+
+    def chunks(self, xs):
+        """(B, S, d) -> (B, n_chunks, Sc, d), whole over "model" (a gather
+        over m1), split over "model_lo"."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        pl = (*xs.placements[:-1], Shard(1), Shard(2) if self.m2 > 1 else Replicate())
+        x4 = _moved(xs, self.mesh3, pl, self.shape)
+        return _redistributed(x4, (*pl[:-2], Replicate(), pl[-1]))
+
+    def weights(self, ws):
+        """Each routed weight as the same shards on the factored mesh."""
+        return [_moved(w, self.mesh3, (*w.placements, w.placements[-1]), w.shape)
+                for w in ws]
+
+    def join(self, ys):
+        """The chunks' outputs (B, n_chunks, Sc, d) -> (B, S, d) placed as
+        the loop's input (each device keeps its own chunks: no
+        collective; the backward gathers their gradients over m1)."""
+        from torch.distributed.tensor import Shard
+
+        pl = (*ys.placements[:-2], Shard(1), ys.placements[-1])
+        B, n, Sc, d = ys.shape
+        return _moved(_redistributed(ys, pl), self.mesh,
+                      (*pl[:-2], Shard(1)), (B, n * Sc, d))
+
+    def scalar(self, t):
+        """A loss on the factored mesh, whole, on the loop's mesh."""
+        from torch.distributed.tensor import Replicate
+
+        whole = [Replicate()] * self.mesh3.ndim
+        return _moved(_redistributed(t, whole), self.mesh,
+                      [Replicate()] * self.mesh.ndim, t.shape)
+
+
+def _token_placements(xc):
+    """The placements of a split chunk's (B, Sc, ...) tensors: as its
+    tokens, whole over "model", split over "model_lo"."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return (*xc.placements[:-2], Replicate(), Shard(1) if xc.placements[-1].is_shard()
+            else Replicate())
+
+
+def _hi_block(mesh, t, dim: int):
+    """``t``'s slice along ``dim`` that this device's "model" coordinate
+    (of the factored mesh) picks."""
+    hi = mesh.ndim - 2
+    n = mesh.size(hi)
+    w = t.shape[dim] // n
+    return t.narrow(dim, mesh.get_local_rank(hi) * w, w)
+
+
+class _SplitDispatch(torch.autograd.Function):
+    """GShard's dispatch of a split chunk, ``xe = einsum("bsec,bsd->becd",
+    dispatch, xc)``, on the device's share of the tokens (a partial sum
+    over "model_lo").  Its backward contracts the experts' slots with the
+    features split over "model", as XLA splits ``repro``'s: the free
+    factor of the model axis takes the features of the backward's
+    products."""
+
+    @staticmethod
+    def forward(ctx, mask, xc, tok):
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+
+        mesh = xc.device_mesh
+        m = _redistributed(mask, tok).to_local()
+        xe = torch.einsum("bsec,bsd->becd", m, _redistributed(xc, tok).to_local())
+        ctx.save_for_backward(m)
+        ctx.tok, ctx.xshape = tok, xc.shape
+        B, _, E, C = mask.shape
+        pl = (*tok[:-2], Replicate(), Partial() if tok[-1].is_shard() else Replicate())
+        shape = (B, E, C, xc.shape[-1])
+        return DTensor.from_local(xe, mesh, pl, run_check=False, shape=torch.Size(shape),
+                                  stride=contiguous_stride(shape))
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        (m,) = ctx.saved_tensors
+        tok, shape = ctx.tok, ctx.xshape
+        mesh = g.device_mesh
+        g = _redistributed(g, (*tok[:-2], Shard(3), Replicate())).to_local()
+        dx = torch.einsum("bsec,becd->bsd", m, g)
+        return None, DTensor.from_local(dx, mesh, (*tok[:-2], Shard(2), tok[-1]),
+                                        run_check=False, shape=shape,
+                                        stride=contiguous_stride(shape)), None
+
+
+class _SplitCombine(torch.autograd.Function):
+    """GShard's combine of a split chunk, ``einsum("bsec,becd->bsd",
+    combine, ye)``, on the device's share of the tokens and every feature;
+    its backward's two products take the features split over "model"
+    (``_SplitDispatch``): the combine mask's gradient a partial sum over
+    "model", the experts' outputs' one over "model_lo".  It saves
+    nothing itself: ``_SaveInputs`` saves its inputs before it runs, so a
+    recompute (``checkpoint``'s early stop) ends before its product, as
+    XLA drops the recompute's combine, whose output no gradient reads."""
+
+    @staticmethod
+    def forward(ctx, cm, ye, tok, saver):
+        from torch.distributed.tensor import DTensor, Replicate
+
+        mesh = cm.device_mesh
+        whole = (*tok[:-2], Replicate(), Replicate())
+        y = torch.einsum("bsec,becd->bsd", _redistributed(cm, tok).to_local(),
+                         _redistributed(ye, whole).to_local())
+        ctx.tok, ctx.saver = tok, saver
+        shape = (*cm.shape[:2], ye.shape[-1])
+        return DTensor.from_local(y, mesh, tok, run_check=False, shape=torch.Size(shape),
+                                  stride=contiguous_stride(shape))
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+        cm, ye = ctx.saver.saved_tensors
+        tok = ctx.tok
+        mesh = g.device_mesh
+        g = _hi_block(mesh, _redistributed(g, tok).to_local(), 2)
+        ye_l = _redistributed(ye, (*tok[:-2], Shard(3), Replicate())).to_local()
+        cm_l = _redistributed(cm, tok).to_local()
+        dcm = torch.einsum("bsd,becd->bsec", g, ye_l)
+        dye = torch.einsum("bsec,bsd->becd", cm_l, g)
+        lo = Partial() if tok[-1].is_shard() else tok[-1]
+        return (DTensor.from_local(dcm, mesh, (*tok[:-2], Partial(), tok[-1]),
+                                   run_check=False, shape=cm.shape,
+                                   stride=contiguous_stride(cm.shape)),
+                DTensor.from_local(dye, mesh, (*tok[:-2], Shard(3), lo), run_check=False,
+                                   shape=ye.shape, stride=contiguous_stride(ye.shape)),
+                None, None)
+
+
+def _run_chunks(chunk_fn, src, cfg, dim: int, size, remat: bool):
+    """Every chunk of the loop's input in order: (the chunks' outputs, the
+    summed load-balance and z losses).  A chunk is ``size`` along ``dim``,
+    or, with ``size`` None (``_SeqSplit``'s layout, as ``repro``'s
+    reshape lays them out), the input's entries along ``dim``.  With
+    ``remat``, each chunk a ``checkpoint``."""
     x = src.get()[0]
     lb = z = x.new_zeros((), dtype=torch.float32)   # a DTensor on a mesh
     ys = []
-    for c in range(x.shape[dim] // size):
+    n = x.shape[dim] if size is None else x.shape[dim] // size
+    for c in range(n):
         if remat:
-            yc, lb_c, z_c = checkpoint(_chunk, chunk_fn, src, c, cfg, dim, size,
-                                       use_reentrant=False)
+            # torch 2.11's checkpoint saves a placeholder tensor through the
+            # hooks around it, a remat period's: kept out of them, so the
+            # period's recompute still stops before the loop (2.13 keeps
+            # its inputs on the checkpoint's own frame)
+            with torch.autograd.graph.saved_tensors_hooks(_same, _same):
+                yc, lb_c, z_c = checkpoint(_chunk, chunk_fn, src, c, cfg, dim, size,
+                                           use_reentrant=False)
         else:
             yc, lb_c, z_c = _chunk(chunk_fn, src, c, cfg, dim, size)
         lb, z = lb + lb_c, z + z_c
         ys.append(yc)
-    return torch.cat(ys, dim), lb, z
+    return ys, lb, z
+
+
+def _same(t):
+    return t
 
 
 def _chunk(chunk_fn, src, c, cfg, dim, size):
     x, *ws = src.get()
-    return chunk_fn(SimpleNamespace(**dict(zip(_ROUTED, ws))), x.narrow(dim, c * size, size), cfg)
+    xc = x.select(dim, c) if size is None else x.narrow(dim, c * size, size)
+    return chunk_fn(SimpleNamespace(**dict(zip(_ROUTED, ws))), xc, cfg)
+
+
+def _unflatten(y, B: int, S: int):
+    """The flat loop's output (B*S, d) as (B, S, d).  On a ``DTensor``
+    split over its tokens by whole batch rows, the same view of the local
+    shard, so that the backward takes the gradient placed as ``y`` (torch
+    2.11's ``DTensor`` refuses the backward's flatten of a gradient whose
+    sequence is split, as the residual's is)."""
+    if not is_dtensor(y):
+        return y.reshape(B, S, -1)
+    from torch.distributed.tensor import Shard
+
+    mesh, pl = y.device_mesh, y.placements
+    if any(p.is_partial() for p in pl) or B % _split_of(pl, mesh, 0):
+        return y.reshape(B, S, -1)
+    out = [Shard(p.dim + 1) if p.is_shard() and p.dim == 1 else p for p in pl]
+    return _moved(y, mesh, out, (B, S, y.shape[1]))
 
 
 class _SaveInputs(torch.autograd.Function):
@@ -343,10 +649,15 @@ def moe_apply(p, x, cfg):
     # on a mesh that splits the experts, the tokens whole over "model" once,
     # for the router, the dispatch and the shared experts
     x = _placed(x, _ep_dim(p.w_gate))
+    ws = [getattr(p, name) for name in _ROUTED]
+    split = None
     if cfg.moe_group == "seq":
         chunk_fn, dim, size = _grouped_chunk_moe, 1, max(1, min(cfg.moe_group_seq, S))
         n_chunks = -(-S // size)
         xs = pad_seq(x, n_chunks * size - S)
+        split = _SeqSplit.of(xs, size, cfg)
+        if split is not None:
+            xs, ws = split.chunks(xs), split.weights(ws)
     else:
         N = B * S
         chunk_fn, dim, size = _chunk_moe, 0, min(cfg.moe_chunk, N)
@@ -355,12 +666,17 @@ def moe_apply(p, x, cfg):
         xs = x.reshape(N, d)
         if pad:
             xs = torch.cat([xs, xs.new_zeros((pad, d))])
-    src = _LoopInputs(xs, [getattr(p, name) for name in _ROUTED])
+        xs = _flat_tokens(xs, size, p.w_gate)
+    src = _LoopInputs(xs, ws)
     shared = mlp_apply(p.shared, x, "silu") if cfg.n_shared_experts else None
     remat = cfg.moe_remat and src.saver is not None
-    y, lb, z = _run_chunks(chunk_fn, src, cfg, dim, size, remat)
+    ys, lb, z = _run_chunks(chunk_fn, src, cfg, dim, None if split else size, remat)
     src.forward_done()
-    y = y[:, :S] if dim else y[:N].reshape(B, S, d)
+    if split is not None:
+        y, lb, z = split.join(torch.stack(ys, 1)), split.scalar(lb), split.scalar(z)
+    else:
+        y = torch.cat(ys, dim)
+    y = y[:, :S] if dim else _unflatten(y[:N], B, S)
     if shared is not None:
         y = y + shared
     return y, {"moe_lb_loss": lb / n_chunks, "moe_z_loss": z / n_chunks}

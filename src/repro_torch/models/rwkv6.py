@@ -23,6 +23,7 @@ from torch import nn
 from repro_torch.models.layers import (
     contiguous_stride,
     dense_init_,
+    gather_operand,
     is_dtensor,
     linear,
     new_param,
@@ -80,11 +81,28 @@ def _shift(x, carry):
     return torch.cat([carry[:, None], x[:, :-1]], dim=1)
 
 
+def _whole(w):
+    """A small weight whole on every mesh dim (the lerp mixes, the decay
+    LoRA's down-projection): gathered once, so what it multiplies stays
+    placed as it is (a ``DTensor``'s ``mu`` split over the features
+    would split the lerps over them, and each projection of a lerp would
+    then contract split features into a partial sum); the identity off a
+    mesh."""
+    if not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate
+
+    return w.redistribute(w.device_mesh, [Replicate()] * w.device_mesh.ndim)
+
+
 def _project(p, x, xx):
-    """Lerped projections -> (lw (float32 log-decay), k, v, r, g)."""
-    mu = p.mu.to(x.dtype)
+    """Lerped projections -> (lw (float32 log-decay), k, v, r, g).  On a
+    mesh ``x`` and ``xx`` come whole over the sequence (``rwkv_time_mix``
+    gathers ``x`` once), the lerps run whole and every projection splits
+    its output."""
+    mu = _whole(p.mu).to(x.dtype)
     m = [x + (xx - x) * mu[i] for i in range(5)]
-    lora = linear(torch.tanh(linear(m[0], p.wA)), p.wB)
+    lora = linear(torch.tanh(linear(m[0], _whole(p.wA))), p.wB)
     lw = -torch.exp(p.w0.float() + lora.float())
     lw = torch.clamp(lw, -8.0, -1e-6)                     # log w_t in (-8, 0)
     k = linear(m[1], p.Wk)
@@ -94,11 +112,29 @@ def _project(p, x, xx):
     return lw, k, v, r, g
 
 
+def _head_mean(t):
+    """``t.mean(-1, keepdim=True)``; on a ``DTensor`` split over the last
+    dim (the head's channels, where the heads do not divide "model") the
+    local sums made whole (an all-reduce of one number a head) and
+    divided, so the statistics come back whole and ``t`` stays split
+    (``DTensor``'s own mean leaves a ``Partial(avg)`` that it then meets
+    by gathering ``t``)."""
+    if not (is_dtensor(t) and any(p.is_shard() and p.dim == t.ndim - 1
+                                  for p in t.placements)):
+        return t.mean(-1, keepdim=True)
+    from torch.distributed.tensor import Replicate
+
+    s = t.sum(-1, keepdim=True)
+    s = s.redistribute(s.device_mesh, [Replicate() if p.is_partial() else p
+                                       for p in s.placements])
+    return s / t.shape[-1]
+
+
 def _group_norm(x, scale, eps=1e-5):
     """Per-head LayerNorm on (B, S, H, K) -> flattened (B, S, d)."""
     xf = x.float()
-    mean = xf.mean(-1, keepdim=True)
-    var = ((xf - mean) ** 2).mean(-1, keepdim=True)
+    mean = _head_mean(xf)
+    var = _head_mean((xf - mean) ** 2)
     xf = (xf - mean) * torch.rsqrt(var + eps)
     B, S, H, K = x.shape
     return (xf.reshape(B, S, H * K) * scale).to(x.dtype)
@@ -145,6 +181,7 @@ def rwkv_time_mix(p, x, H, *, shift_carry=None, state=None):
     B, S, d = x.shape
     K = d // H
     carry = shift_carry if shift_carry is not None else x.new_zeros((B, d))
+    x = gather_operand(x, p.Wk, p.Wv, p.Wr, p.Wg)
     lw, k, v, r, g = _project(p, x, _shift(x, carry))
 
     L = _CHUNK
@@ -186,8 +223,9 @@ def rwkv_time_mix_step(p, x, H, shift_carry, state):
 def rwkv_channel_mix(p, x, *, shift_carry=None):
     B, S, d = x.shape
     carry = shift_carry if shift_carry is not None else x.new_zeros((B, d))
+    x = gather_operand(x, p.Ck, p.Cr)
     xx = _shift(x, carry)
-    cmu = p.cmu.to(x.dtype)
+    cmu = _whole(p.cmu).to(x.dtype)
     mk = x + (xx - x) * cmu[0]
     mr = x + (xx - x) * cmu[1]
     kk = torch.square(torch.relu(linear(mk, p.Ck)))

@@ -197,10 +197,10 @@ def run_port(arch, shape_name, mesh_shape, info, full, remat=True, by_op=False,
     return out
 
 
-def compare(archs, shape_name="train_4k", mesh_shape=(2, 2), batch=8, seq=64,
-            full=False, remat=True, by_op=False, overrides="", timeout=900) -> dict:
-    """``{arch: {"repro": counts, "port": counts}}``, one subprocess a
-    (package, arch), all at once."""
+def start(archs, shape_name="train_4k", mesh_shape=(2, 2), batch=8, seq=64, full=False,
+          remat=True, by_op=False, overrides="") -> dict:
+    """One subprocess a (package, arch), all started at once:
+    ``{(arch, side): Popen}`` for ``finish``."""
     procs = {}
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), JAX_PLATFORMS="cpu",
                OMP_NUM_THREADS="1")
@@ -213,6 +213,12 @@ def compare(archs, shape_name="train_4k", mesh_shape=(2, 2), batch=8, seq=64,
                    ["--set", overrides] if overrides else [])
             procs[arch, side] = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
                                                  stderr=subprocess.PIPE, text=True)
+    return procs
+
+
+def finish(procs: dict, timeout=900) -> dict:
+    """``{arch: {"repro": counts, "port": counts}}`` from ``start``'s
+    processes."""
     out: dict = {}
     for (arch, side), p in procs.items():
         stdout, stderr = p.communicate(timeout=timeout)
@@ -220,6 +226,14 @@ def compare(archs, shape_name="train_4k", mesh_shape=(2, 2), batch=8, seq=64,
             raise RuntimeError(f"{side} {arch} failed:\n{stderr[-3000:]}")
         out.setdefault(arch, {})[side] = json.loads(stdout.strip().splitlines()[-1])
     return out
+
+
+def compare(archs, shape_name="train_4k", mesh_shape=(2, 2), batch=8, seq=64,
+            full=False, remat=True, by_op=False, overrides="", timeout=900) -> dict:
+    """``{arch: {"repro": counts, "port": counts}}``, one subprocess a
+    (package, arch), all at once."""
+    return finish(start(archs, shape_name, mesh_shape, batch, seq, full, remat, by_op,
+                        overrides), timeout)
 
 
 def main(argv=None):

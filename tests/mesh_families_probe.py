@@ -5,8 +5,10 @@ one decode step, each against the same path without a mesh.  Prints one
 line per (architecture, path): the largest error relative to a tensor's max
 (loss, every gradient, the logits), or the error raised and the port's
 innermost frame, so a torch version that refuses a ``DTensor`` view shows
-every site at once.  ``tests/test_torch_mesh_families.py`` holds every
-path to 1e-4; the script imports no JAX, so it also runs where the card is.
+every site at once.  ``CASES`` adds configs and meshes beyond the ten
+families' (named ``arch:case``; ``--archs`` takes them too).
+``tests/test_torch_mesh_families.py`` holds every path to 1e-4; the
+script imports no JAX, so it also runs where the card is.
 
     PYTHONPATH=src python tests/mesh_families_probe.py [--archs a,b]
 """
@@ -53,14 +55,16 @@ def _rel(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
 
 
-def _paths(arch: str, mesh):
+def _paths(arch: str, mesh, overrides=None):
     """Each path on the mesh against the same path without one; returns
     the worst relative error it saw."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.distributed.sharding import batch_shardings, distribute
     from repro_torch.training import SyntheticData
 
-    cfg = get_config(arch).reduced()
+    cfg = dataclasses.replace(get_config(arch).reduced(), **(overrides or {}))
     model, plain = _model(cfg, mesh), _model(cfg)
     raw = SyntheticData.for_model(cfg, BATCH, SEQ, seed=0).batch(0)
     whole = {k: torch.as_tensor(v) for k, v in raw.items()}
@@ -94,6 +98,20 @@ def _paths(arch: str, mesh):
     return {"loss+backward": loss, "prefill+decode": serve}
 
 
+# cases beyond each family's reduced config on 2x2: {name: (arch, config
+# overrides, mesh shape)}.  Three experts do not divide "model", so the
+# grouped MoE's chunks keep the sequence's split (``moe._SeqSplit``): on
+# 1x4 a chunk of 8 of the 16 positions spans two devices' shares, one of 4
+# lies in one share; the flat path on 2x2 relays its tokens over the data
+# axis (``moe._flat_tokens``).
+CASES = {
+    "mixtral-8x22b:split-span": ("mixtral-8x22b", {"n_experts": 3, "moe_group_seq": 8}, (1, 4)),
+    "mixtral-8x22b:split-share": ("mixtral-8x22b", {"n_experts": 3, "moe_group_seq": 4},
+                                  (1, 4)),
+    "mixtral-8x22b:flat": ("mixtral-8x22b", {"moe_group": "flat", "moe_chunk": 16}, (2, 2)),
+}
+
+
 def _worker(rank: int, port: int, archs: list, out: str):
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -102,11 +120,14 @@ def _worker(rank: int, port: int, archs: list, out: str):
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
                             world_size=4)
     res = {}
+    meshes = {}
     try:
-        mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
         for arch in archs:
+            base, overrides, shape = CASES.get(arch, (arch, None, (2, 2)))
+            if shape not in meshes:
+                meshes[shape] = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
             try:
-                paths = _paths(arch, mesh)
+                paths = _paths(base, meshes[shape], overrides)
             except Exception as exc:   # noqa: BLE001 - the probe reports every failure
                 res[(arch, "build")] = _where(exc)
                 continue
@@ -141,7 +162,7 @@ def main(argv=None):
     from repro_torch.configs import list_archs
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--archs", default=",".join(list_archs()))
+    ap.add_argument("--archs", default=",".join(list_archs() + list(CASES)))
     args = ap.parse_args(argv)
     print(f"torch {torch.__version__}", flush=True)
     for (arch, name), got in run(args.archs.split(",")).items():

@@ -49,7 +49,19 @@ COMPARED = ("qwen3-4b", "rwkv6-1.6b", "mixtral-8x22b", "deepseek-v2-236b",
 BOUNDS = {arch: (0.98, 1.02) for arch in COMPARED} | {"rwkv6-1.6b": (0.94, 1.06)}
 # port / repro per-device collective bytes at the cut cell, at most
 COLLECTIVE_BOUNDS = {"mixtral-8x22b": 1.15, "deepseek-v2-236b": 1.15,
-                     "recurrentgemma-2b": 1.15}
+                     "recurrentgemma-2b": 1.15, "rwkv6-1.6b": 1.15}
+# chunked MoE loops over a sequence that "model" splits (three experts do
+# not divide it, so the tokens keep that split): on 2x4 a group of 32 of
+# the 64 positions spans two devices' shares, one of 16 is one share; the
+# flat path's chunks of 128 tokens on 2x2 lie inside a data shard.  Each
+# (mesh, config overrides, remat); per-device FLOPs within 2% of repro's
+SPLIT_CASES = {
+    "mixtral-2x4-group32": ((2, 4), "n_experts=3,moe_group_seq=32", True),
+    "mixtral-2x4-group32-no-remat": ((2, 4), "n_experts=3,moe_group_seq=32", False),
+    "mixtral-2x4-group16": ((2, 4), "n_experts=3,moe_group_seq=16", True),
+    "mixtral-2x4-group16-no-remat": ((2, 4), "n_experts=3,moe_group_seq=16", False),
+    "mixtral-2x2-flat": ((2, 2), "moe_group=flat,moe_chunk=128", True),
+}
 
 
 @pytest.fixture(scope="module")
@@ -67,11 +79,15 @@ def runs(tmp_path_factory):
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "qwen3-4b",
          "--shape", "prefill_32k", "--mesh", "single", "--out", str(pf_out)],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    procs = {case: dryrun_compare.start(["mixtral-8x22b"], "train_4k", mesh, batch=8, seq=64,
+                                        remat=remat, overrides=overrides)
+             for case, (mesh, overrides, remat) in SPLIT_CASES.items()}
     compared = dryrun_compare.compare(COMPARED, "train_4k", (2, 2), batch=8, seq=64)
+    split = {case: dryrun_compare.finish(p)["mixtral-8x22b"] for case, p in procs.items()}
     stdout, stderr = cli.communicate(timeout=900)
     pf_stdout, pf_stderr = prefill.communicate(timeout=900)
     return {"cli": (cli.returncode, stdout, stderr, out), "compared": compared,
-            "prefill": (prefill.returncode, pf_stdout, pf_stderr, pf_out)}
+            "split": split, "prefill": (prefill.returncode, pf_stdout, pf_stderr, pf_out)}
 
 
 # ---------------------------------------------------------------------------
@@ -247,6 +263,18 @@ def test_dryrun_collective_bytes_against_repro(runs, arch):
     port, repro = got["port"]["collective_bytes"], got["repro"]["collective_bytes"]
     assert port > 0 and repro > 0
     assert port / repro <= COLLECTIVE_BOUNDS[arch], (port, repro)
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_split_chunk_flops_against_repro(runs, case):
+    """A chunk of the MoE loop is placed as ``repro``'s reshape places it
+    (``moe._SeqSplit``, ``moe._flat_tokens``): each device routes,
+    dispatches and combines its share of every chunk, not the whole chunk
+    (ROADMAP Queue C, F5 and F6)."""
+    got = runs["split"][case]
+    port, repro = got["port"]["flops"], got["repro"]["flops"]
+    assert port > 0 and repro > 0
+    assert 0.98 <= port / repro <= 1.02, (port, repro)
 
 
 def count_chunk_calls(arch: str, seq: int = 64, batch: int = 2, **overrides) -> dict:
