@@ -106,9 +106,27 @@ def _aux(probs, logits, expert_idx, E: int, dims):
 
 
 def _router(p, xc):
-    logits = linear(xc, p.router).float()
+    """The router's logits and probabilities of the chunk ``xc``.  Where
+    the chunk's tokens come whole over "model" for experts split over it
+    and ``p`` carries the router's own chunk (``moe_apply``), the product
+    takes the device's share of the positions, as XLA splits ``repro``'s
+    (``_SeqSplit``'s layout), and the logits are gathered whole."""
+    if getattr(p, "route_x", None) is None:
+        logits = linear(xc, p.router).float()
+    else:
+        logits = _whole_logits(linear(p.route_x, p.route_w).float(), xc.device_mesh)
     probs = torch.softmax(logits, dim=-1)
     return logits, probs
+
+
+def _whole_logits(t, mesh):
+    """A split chunk's (B, Sc, E) logits on the factored mesh gathered
+    whole over "model_lo" and moved onto ``mesh``, the loop's, whole over
+    "model" (the gather the only collective)."""
+    from torch.distributed.tensor import Replicate
+
+    whole = [*t.placements[:-2], Replicate(), Replicate()]
+    return _moved(_redistributed(t, whole), mesh, whole[:-1], t.shape)
 
 
 def _ep_dim(w):
@@ -575,7 +593,10 @@ def _same(t):
 def _chunk(chunk_fn, src, c, cfg, dim, size):
     x, *ws = src.get()
     xc = x.select(dim, c) if size is None else x.narrow(dim, c * size, size)
-    return chunk_fn(SimpleNamespace(**dict(zip(_ROUTED, ws))), xc, cfg)
+    p = SimpleNamespace(**dict(zip(_ROUTED, ws)))
+    if len(ws) > len(_ROUTED):   # the router's own chunks and weight (``moe_apply``)
+        p.route_x, p.route_w = ws[-2].select(1, c), ws[-1]
+    return chunk_fn(p, xc, cfg)
 
 
 def _unflatten(y, B: int, S: int):
@@ -646,10 +667,11 @@ _ROUTED = ("router", "w_gate", "w_up", "w_down")
 def moe_apply(p, x, cfg):
     """x (B, S, d) -> (y (B, S, d), aux dict of scalar losses)."""
     B, S, d = x.shape
-    # on a mesh that splits the experts, the tokens whole over "model" once,
-    # for the router, the dispatch and the shared experts
-    x = _placed(x, _ep_dim(p.w_gate))
+    ep = _ep_dim(p.w_gate)
     ws = [getattr(p, name) for name in _ROUTED]
+    # on a mesh that splits the experts, the tokens whole over "model" once,
+    # for the dispatch (and the shared experts: below)
+    x_in, x = x, _placed(x, ep)
     split = None
     if cfg.moe_group == "seq":
         chunk_fn, dim, size = _grouped_chunk_moe, 1, max(1, min(cfg.moe_group_seq, S))
@@ -658,6 +680,13 @@ def moe_apply(p, x, cfg):
         split = _SeqSplit.of(xs, size, cfg)
         if split is not None:
             xs, ws = split.chunks(xs), split.weights(ws)
+        elif ep is not None and p.router.placements[ep].is_replicate():
+            # a router whole over "model" (the resolver gave the data axes
+            # to d) takes its own chunks, placed as a split loop's (``_router``)
+            xr = pad_seq(x_in, n_chunks * size - S)
+            route = _SeqSplit.of(xr, size, cfg)
+            if route is not None:
+                ws += [route.chunks(xr), *route.weights(ws[:1])]
     else:
         N = B * S
         chunk_fn, dim, size = _chunk_moe, 0, min(cfg.moe_chunk, N)
@@ -668,7 +697,13 @@ def moe_apply(p, x, cfg):
             xs = torch.cat([xs, xs.new_zeros((pad, d))])
         xs = _flat_tokens(xs, size, p.w_gate)
     src = _LoopInputs(xs, ws)
-    shared = mlp_apply(p.shared, x, "silu") if cfg.n_shared_experts else None
+    shared = None
+    if cfg.n_shared_experts:
+        # the gathered tokens where the shared experts split d_ff over
+        # "model" (``gather_operand`` would gather them so), else the tokens
+        # as they came, split as XLA splits repro's product
+        ff_split = ep is not None and p.shared.w_gate.placements[ep].is_shard(1)
+        shared = mlp_apply(p.shared, x if ff_split else x_in, "silu")
     remat = cfg.moe_remat and src.saver is not None
     ys, lb, z = _run_chunks(chunk_fn, src, cfg, dim, None if split else size, remat)
     src.forward_done()

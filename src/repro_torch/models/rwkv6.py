@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.layers import (
+    _redistributed,
     contiguous_stride,
     dense_init_,
     gather_operand,
@@ -95,14 +96,16 @@ def _whole(w):
     return w.redistribute(w.device_mesh, [Replicate()] * w.device_mesh.ndim)
 
 
-def _project(p, x, xx):
+def _project(p, x, xx, seq=None):
     """Lerped projections -> (lw (float32 log-decay), k, v, r, g).  On a
     mesh ``x`` and ``xx`` come whole over the sequence (``rwkv_time_mix``
     gathers ``x`` once), the lerps run whole and every projection splits
-    its output."""
+    its output; the decay LoRA's down-projection takes the device's share
+    of the positions where ``seq`` (the placements ``x`` came with) split
+    them, as XLA runs ``repro``'s."""
     mu = _whole(p.mu).to(x.dtype)
     m = [x + (xx - x) * mu[i] for i in range(5)]
-    lora = linear(torch.tanh(linear(m[0], _whole(p.wA))), p.wB)
+    lora = linear(torch.tanh(linear(_share_of(m[0], seq), _whole(p.wA))), p.wB)
     lw = -torch.exp(p.w0.float() + lora.float())
     lw = torch.clamp(lw, -8.0, -1e-6)                     # log w_t in (-8, 0)
     k = linear(m[1], p.Wk)
@@ -112,22 +115,90 @@ def _project(p, x, xx):
     return lw, k, v, r, g
 
 
+def _share_of(t, seq):
+    """``t`` (B, S, ...), whole along S on the mesh dims where the
+    placements ``seq`` split it, as this device's share there: a slice of
+    the local shard (no collective), its gradient a partial sum on those
+    dims, reduced where ``t``'s other partial gradients are.  ``t`` itself
+    off a mesh or where ``seq`` splits no position."""
+    if not is_dtensor(t) or seq is None:
+        return t
+    from torch.distributed.tensor import DTensor, Partial, Shard
+
+    mesh = t.device_mesh
+    dims = [i for i, p in enumerate(seq) if p.is_shard(1) and t.placements[i].is_replicate()]
+    if not dims:
+        return t
+    coord, lo, span = mesh.get_coordinate(), 0, t.shape[1]
+    for i in dims:                         # mesh order: the outer split first
+        span //= mesh.size(i)
+        lo += coord[i] * span
+    local = t.to_local(grad_placements=[Partial() if i in dims else p
+                                        for i, p in enumerate(t.placements)])
+    return DTensor.from_local(local.narrow(1, lo, span), mesh,
+                              [Shard(1) if i in dims else p for i, p in enumerate(t.placements)],
+                              run_check=False, shape=t.shape,
+                              stride=contiguous_stride(t.shape))
+
+
+def _summed(t):
+    """A ``DTensor``'s partial sums made whole (an all-reduce), its splits
+    kept; anything else as it is."""
+    if not (is_dtensor(t) and any(p.is_partial() for p in t.placements)):
+        return t
+    from torch.distributed.tensor import Replicate
+
+    return t.redistribute(t.device_mesh, [Replicate() if p.is_partial() else p
+                                          for p in t.placements])
+
+
+def _channels_split(t) -> bool:
+    """Whether ``t`` is a ``DTensor`` split over its last dim (a head's
+    channels: where the heads do not divide "model")."""
+    return is_dtensor(t) and any(p.is_shard(t.ndim - 1) for p in t.placements)
+
+
+def _whole_channels(t):
+    """A ``DTensor`` split over its last dim gathered over it, its other
+    splits kept."""
+    from torch.distributed.tensor import Replicate
+
+    return t.redistribute(t.device_mesh, [Replicate() if p.is_shard(t.ndim - 1) else p
+                                          for p in t.placements])
+
+
+def _share(x) -> int:
+    """The positions of ``x`` (B, S, ...) that one device holds (S off a
+    mesh)."""
+    n = 1
+    if is_dtensor(x):
+        for i, p in enumerate(x.placements):
+            if p.is_shard(1):
+                n *= x.device_mesh.size(i)
+    return x.shape[1] // n
+
+
+def _state_like(s, kc):
+    """A new state (B,H,K,V) placed as the chunks ``kc`` (n,B,H,L,K) place
+    its batch, heads and rows (the identity off a mesh): a local slice."""
+    if not is_dtensor(kc):
+        return s
+    from torch.distributed.tensor import Replicate, Shard
+
+    dims = {1: 0, 2: 1, 4: 2}
+    return s.redistribute(s.device_mesh, [Shard(dims[p.dim]) if p.is_shard() and p.dim in dims
+                                          else Replicate() for p in kc.placements])
+
+
 def _head_mean(t):
     """``t.mean(-1, keepdim=True)``; on a ``DTensor`` split over the last
-    dim (the head's channels, where the heads do not divide "model") the
-    local sums made whole (an all-reduce of one number a head) and
+    dim the local sums made whole (an all-reduce of one number a head) and
     divided, so the statistics come back whole and ``t`` stays split
     (``DTensor``'s own mean leaves a ``Partial(avg)`` that it then meets
     by gathering ``t``)."""
-    if not (is_dtensor(t) and any(p.is_shard() and p.dim == t.ndim - 1
-                                  for p in t.placements)):
+    if not _channels_split(t):
         return t.mean(-1, keepdim=True)
-    from torch.distributed.tensor import Replicate
-
-    s = t.sum(-1, keepdim=True)
-    s = s.redistribute(s.device_mesh, [Replicate() if p.is_partial() else p
-                                       for p in s.placements])
-    return s / t.shape[-1]
+    return _summed(t.sum(-1, keepdim=True)) / t.shape[-1]
 
 
 def _group_norm(x, scale, eps=1e-5):
@@ -155,20 +226,25 @@ def _cumsum_time(t):
 
 
 def _chunk_wkv(r, k, v, lw, u, state):
-    """One chunk: r/k/v (B,H,L,K), lw float32 (B,H,L,K), state (B,H,K,V)."""
+    """One chunk: r/k/v (B,H,L,K), lw float32 (B,H,L,K), state (B,H,K,V).
+    On a mesh that splits the head's channels, r, k, lw, ``u`` and the
+    state's rows keep the split and ``v`` comes whole: the scores, the
+    bonus and the inter-chunk term are partial sums over the channels,
+    each made whole before it meets ``v``, so every device runs its data
+    shard's chunk over the whole of V, as XLA places ``repro``'s chunk."""
     rf, kf, vf = r.float(), k.float(), v.float()
     Lcum = _cumsum_time(lw)                                # inclusive
     Lprev = Lcum - lw                                      # exclusive
     r_t = rf * torch.exp(Lprev)                            # decayed queries
     k_t = kf * torch.exp(torch.clamp(-Lcum, max=_CLAMP))   # amplified keys
-    A = torch.einsum("bhtk,bhsk->bhts", r_t, k_t)          # intra-chunk scores
+    A = _summed(torch.einsum("bhtk,bhsk->bhts", r_t, k_t))  # intra-chunk scores
     L = r.shape[2]
     tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=r.device), -1)
     A = torch.where(tri[None, None], A, 0.0)
-    diag = torch.einsum("bhtk,bhtk->bht", rf * u[None, :, None, :], kf)
+    diag = _summed(torch.einsum("bhtk,bhtk->bht", rf * u[None, :, None, :], kf))
     out = torch.einsum("bhts,bhsv->bhtv", A, vf)
     out = out + diag[..., None] * vf
-    out = out + torch.einsum("bhtk,bhkv->bhtv", r_t, state)  # inter-chunk
+    out = out + _summed(torch.einsum("bhtk,bhkv->bhtv", r_t, state))  # inter-chunk
     Dlast = Lcum[:, :, -1:, :]                             # (B,H,1,K)
     kd = kf * torch.exp(Dlast - Lcum)                      # exponent <= 0
     new_state = state * torch.exp(Dlast[:, :, 0, :, None]) + torch.einsum(
@@ -176,15 +252,48 @@ def _chunk_wkv(r, k, v, lw, u, state):
     return out, new_state
 
 
+def _local_heads(fn, r, k, v, w, u, state):
+    """``fn(r, k, v, w, u, state) -> (out, new_state)`` (a chunk or a decode
+    step) on the local shards where a mesh splits only the batch and the
+    heads, alike in every operand (each device holds whole heads, so every
+    product is its own), the outputs placed as ``r``, ``u`` split as its
+    heads (its gradient summed over the batch's split): torch 2.11's
+    ``DTensor`` refuses the ``einsum``s' fold of a batch dim and a head
+    dim that are both split.  None elsewhere."""
+    if not (is_dtensor(r) and all(is_dtensor(t) and t.placements == r.placements
+                                  for t in (k, v, w, state))
+            and all(p.is_replicate() or p.is_shard(0) or p.is_shard(1) for p in r.placements)):
+        return None
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = r.device_mesh
+    u = _redistributed(u, [Shard(0) if p.is_shard(1) else Replicate() for p in r.placements])
+    u = u.to_local(grad_placements=[Partial() if p.is_shard(0) else q
+                                    for p, q in zip(r.placements, u.placements)])
+    out, new = fn(*(t.to_local() for t in (r, k, v, w)), u, state.to_local())
+    return tuple(DTensor.from_local(t, mesh, r.placements, run_check=False, shape=shape,
+                                    stride=contiguous_stride(shape))
+                 for t, shape in ((out, v.shape), (new, state.shape)))
+
+
+def _wkv_step(r, k, v, w, u, state):
+    """One token: r/k/v/w (B,H,K) float32, state (B,H,K,V)."""
+    kv = torch.einsum("bhk,bhv->bhkv", k, v)
+    out = torch.einsum("bhk,bhkv->bhv", r, state + u[None, :, :, None] * kv)
+    return out, state * w[..., None] + kv
+
+
 def rwkv_time_mix(p, x, H, *, shift_carry=None, state=None):
     """Full-sequence time-mix. x (B,S,d). Returns (y, (last_x, state))."""
     B, S, d = x.shape
     K = d // H
     carry = shift_carry if shift_carry is not None else x.new_zeros((B, d))
-    x = gather_operand(x, p.Wk, p.Wv, p.Wr, p.Wg)
-    lw, k, v, r, g = _project(p, x, _shift(x, carry))
-
     L = _CHUNK
+    in_share = _share(x) % L == 0     # each chunk inside one device's share
+    seq = x.placements if is_dtensor(x) else None
+    x = gather_operand(x, p.Wk, p.Wv, p.Wr, p.Wg)
+    lw, k, v, r, g = _project(p, x, _shift(x, carry), seq)
+
     n = -(-S // L)
     pad = n * L - S
 
@@ -194,13 +303,26 @@ def rwkv_time_mix(p, x, H, *, shift_carry=None, state=None):
 
     # zero padding is the mask: padded steps have lw = 0 and k = 0
     lwc, kc, vc, rc = chunks(lw.float()), chunks(k), chunks(v), chunks(r)
-    s = state if state is not None else x.new_zeros((B, H, K, K), dtype=torch.float32)
+    # v whole over its channels (one gather, every chunk) where "model"
+    # splits them and a chunk lies inside a share of the sequence: XLA's
+    # placement of repro's chunk there (across shares it also splits a
+    # chunk's positions, which the port does not: ROADMAP Queue C)
+    split = in_share and _channels_split(vc)
+    if split:
+        vc = _whole_channels(vc)
+    s = state if state is not None else _state_like(
+        x.new_zeros((B, H, K, K), dtype=torch.float32), kc)
     outs = []
     for i in range(n):
-        out, s = _chunk_wkv(rc[i], kc[i], vc[i], lwc[i], p.u, s)
+        args = (rc[i], kc[i], vc[i], lwc[i], p.u, s)
+        out, s = _local_heads(_chunk_wkv, *args) or _chunk_wkv(*args)
         outs.append(out)
     out = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(B, n * L, H, K)[:, :S]
-    y = _group_norm(out, p.gn_scale).to(x.dtype) * F.silu(g)
+    if split:   # whole heads come out: normed whole, then split as g (the gradient gathered)
+        y = _redistributed(_group_norm(out, _whole(p.gn_scale)), g.placements)
+    else:
+        y = _group_norm(out, p.gn_scale)
+    y = y.to(x.dtype) * F.silu(g)
     return linear(y, p.Wo), (x[:, -1], s)
 
 
@@ -213,9 +335,8 @@ def rwkv_time_mix_step(p, x, H, shift_carry, state):
     kh = k[:, 0].reshape(B, H, K).float()
     vh = v[:, 0].reshape(B, H, K).float()
     rh = r[:, 0].reshape(B, H, K).float()
-    kv = torch.einsum("bhk,bhv->bhkv", kh, vh)
-    out = torch.einsum("bhk,bhkv->bhv", rh, state + p.u[None, :, :, None] * kv)
-    new_state = state * w[..., None] + kv
+    args = (rh, kh, vh, w, p.u, state)
+    out, new_state = _local_heads(_wkv_step, *args) or _wkv_step(*args)
     y = _group_norm(out.reshape(B, 1, H, K), p.gn_scale).to(x.dtype) * F.silu(g)
     return linear(y, p.Wo), x[:, -1], new_state
 

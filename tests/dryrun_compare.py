@@ -13,7 +13,8 @@ architecture and a table of per-device FLOPs, traffic and collective bytes.
 
 ``--archs`` takes a comma-separated list or ``all`` (the ten families);
 ``--full`` runs the archs' full configs instead of ``reduced()`` (the
-port's trace of a full train cell takes minutes on the CPU);
+port's trace of a full train cell takes minutes on the CPU; ``--timeout``
+gives each process its seconds, 900 by default);
 ``--no-remat`` turns the three remat switches off in both packages;
 ``--set k=v,...`` overrides config fields in both (e.g.
 ``--set moe_group_seq=16,attn_q_chunk=16`` for several MoE and attention
@@ -247,6 +248,8 @@ def main(argv=None):
     ap.add_argument("--no-remat", action="store_true")
     ap.add_argument("--by-op", action="store_true")
     ap.add_argument("--set", default="", metavar="K=V,...")
+    ap.add_argument("--timeout", type=float, default=900,
+                    help="seconds each comparison process may take")
     ap.add_argument("--one", choices=("repro", "port"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     mesh_shape = tuple(int(x) for x in args.mesh.split("x"))
@@ -272,7 +275,7 @@ def main(argv=None):
                                   remat, args.by_op, overrides)))
         return
     res = compare(archs, args.shape, mesh_shape, args.batch, args.seq, args.full, remat,
-                  args.by_op, args.set)
+                  args.by_op, args.set, args.timeout)
     cell = (f"{args.shape} (batch {args.batch}, sequence {args.seq}), mesh {args.mesh}, "
             f"{'full' if args.full else 'reduced'} configs, remat {'on' if remat else 'off'}"
             + (f", {args.set}" if args.set else ""))

@@ -55,9 +55,9 @@ def _rel(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
 
 
-def _paths(arch: str, mesh, overrides=None):
-    """Each path on the mesh against the same path without one; returns
-    the worst relative error it saw."""
+def _paths(arch: str, mesh, overrides=None, seq: int = SEQ):
+    """Each path on the mesh against the same path without one (a batch
+    of ``seq`` positions); returns the worst relative error it saw."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -66,7 +66,7 @@ def _paths(arch: str, mesh, overrides=None):
 
     cfg = dataclasses.replace(get_config(arch).reduced(), **(overrides or {}))
     model, plain = _model(cfg, mesh), _model(cfg)
-    raw = SyntheticData.for_model(cfg, BATCH, SEQ, seed=0).batch(0)
+    raw = SyntheticData.for_model(cfg, BATCH, seq, seed=0).batch(0)
     whole = {k: torch.as_tensor(v) for k, v in raw.items()}
     batch = distribute(whole, batch_shardings(whole, mesh))
 
@@ -84,13 +84,13 @@ def _paths(arch: str, mesh, overrides=None):
         if cfg.family == "encoder":
             return None
         prompt = {k: v for k, v in batch.items() if k != "labels"}
-        caches, logits = model.prefill(prompt, SEQ + 4)
+        caches, logits = model.prefill(prompt, seq + 4)
         want_caches, want_logits = plain.prefill(
-            {k: v for k, v in whole.items() if k != "labels"}, SEQ + 4)
+            {k: v for k, v in whole.items() if k != "labels"}, seq + 4)
         token = torch.zeros((BATCH, 1), dtype=torch.int32)
         placed = distribute({"token": token}, batch_shardings({"token": token}, mesh))["token"]
-        _, step = model.decode_step(caches, placed, SEQ)
-        _, want_step = plain.decode_step(want_caches, token, SEQ)
+        _, step = model.decode_step(caches, placed, seq)
+        _, want_step = plain.decode_step(want_caches, token, seq)
         V = cfg.vocab                          # past it: the -1e30 of padding
         return max(_rel(_whole(logits)[..., :V], want_logits[..., :V]),
                    _rel(_whole(step)[..., :V], want_step[..., :V]))
@@ -99,16 +99,29 @@ def _paths(arch: str, mesh, overrides=None):
 
 
 # cases beyond each family's reduced config on 2x2: {name: (arch, config
-# overrides, mesh shape)}.  Three experts do not divide "model", so the
+# overrides, mesh shape[, sequence])}.  Three experts do not divide "model", so the
 # grouped MoE's chunks keep the sequence's split (``moe._SeqSplit``): on
 # 1x4 a chunk of 8 of the 16 positions spans two devices' shares, one of 4
 # lies in one share; the flat path on 2x2 relays its tokens over the data
-# axis (``moe._flat_tokens``).
+# axis (``moe._flat_tokens``).  deepseek-v2 with d_model 512 takes its
+# router whole over "model" (the resolver gives the data axis to d), so the
+# router runs on each device's share of a chunk (``moe._router``) and the
+# shared experts, their d_ff whole there, on the split tokens: on 1x4 a
+# chunk of 8 spans two shares, on 2x2 the chunk is the sequence.  rwkv6 at
+# 64 positions on 2x2: each WKV chunk of 32 lies in a share of the
+# sequence, so v comes whole over the head's split channels; with heads of
+# 16 channels "model" splits the heads, as at full size, and each chunk
+# runs on the local shards (``rwkv6._local_chunk``).
 CASES = {
     "mixtral-8x22b:split-span": ("mixtral-8x22b", {"n_experts": 3, "moe_group_seq": 8}, (1, 4)),
     "mixtral-8x22b:split-share": ("mixtral-8x22b", {"n_experts": 3, "moe_group_seq": 4},
                                   (1, 4)),
     "mixtral-8x22b:flat": ("mixtral-8x22b", {"moe_group": "flat", "moe_chunk": 16}, (2, 2)),
+    "deepseek-v2-236b:router-span": ("deepseek-v2-236b",
+                                     {"d_model": 512, "moe_group_seq": 8}, (1, 4)),
+    "deepseek-v2-236b:router-2x2": ("deepseek-v2-236b", {"d_model": 512}, (2, 2)),
+    "rwkv6-1.6b:chunk-in-share": ("rwkv6-1.6b", None, (2, 2), 64),
+    "rwkv6-1.6b:heads": ("rwkv6-1.6b", {"rwkv_head_dim": 16}, (2, 2), 64),
 }
 
 
@@ -123,11 +136,11 @@ def _worker(rank: int, port: int, archs: list, out: str):
     meshes = {}
     try:
         for arch in archs:
-            base, overrides, shape = CASES.get(arch, (arch, None, (2, 2)))
+            base, overrides, shape, *seq = CASES.get(arch, (arch, None, (2, 2)))
             if shape not in meshes:
                 meshes[shape] = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
             try:
-                paths = _paths(base, meshes[shape], overrides)
+                paths = _paths(base, meshes[shape], overrides, *seq)
             except Exception as exc:   # noqa: BLE001 - the probe reports every failure
                 res[(arch, "build")] = _where(exc)
                 continue
