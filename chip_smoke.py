@@ -220,7 +220,21 @@ Phases, in order; any failure ends the run with a non-zero exit code:
              step with its MoE chunks over a split sequence (2x4, groups of
              32 and 16 positions) and its flat path (2x2), each on a fake
              group of its mesh's size: per-device FLOPs within 2% of
-             ``repro``'s counts, kept here.
+             ``repro``'s counts, kept here; and reduced rwkv6-1.6b's
+             decode step with heads of 16 channels on a fake group of 8
+             (2x4), the cache's state split over its rows: it traces on
+             this torch, each layer's step on local shards, per-device
+             FLOPs equal to ``repro``'s, kept here.
+
+Phases 9-12 hold every full-size result they compute to ``repro``'s own,
+field for field (``tests/data/repro_fullsize.json``, written on a CPU with
+JAX by ``tests/repro_fullsize_record.py``, whose ``PATHS`` is the one list
+of these paths): the graph's digest, the colours' digest, ``num_colors``,
+``iterations``, ``work_items``, ``padded_work``, ``class_cells`` and
+``converged``; the first difference ends the run (the path, the field,
+the record's and the card's values), and each phase prints ``reference:
+N compared, 0 differ, M listed without an entry`` (a path ``repro`` could
+not run on a CPU is listed with its reason).
 
 The line before the last is the kernels' JSON record, and the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
@@ -351,6 +365,42 @@ from repro_torch.models import build_model  # noqa: E402
 from repro_torch.training import AdamWConfig, init_train_state, make_train_step  # noqa: E402
 from repro_torch.training.data import SyntheticData  # noqa: E402
 from repro_torch.training.optimizer import _global_norm, adamw_update  # noqa: E402
+
+
+def _reference_module():
+    """``tests/repro_fullsize_record.py``: ``repro``'s full-size results
+    (``tests/data/repro_fullsize.json``, made on a CPU with JAX), the one
+    list of the full-size paths and the digest each result is held to.  It
+    imports neither JAX nor ``repro`` at module level; loaded by path."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "tests" / "repro_fullsize_record.py"
+    spec = importlib.util.spec_from_file_location("fullsize_reference", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+reference = _reference_module()
+_RECORD = {}
+
+
+def reference_tally(phase: int):
+    """Phases 9-12 hold each full-size result to ``repro``'s record, field
+    for field, the graph's digest first: a difference raises
+    ``reference.Mismatch`` (the path, the field, both values)."""
+    if not _RECORD:
+        _RECORD.update(reference.load())
+    return reference.Tally(_RECORD, phase)
+
+
+def reference_done(tally):
+    missing = tally.missing()
+    if missing:
+        fail(f"reference: phase {tally.phase} paths never compared: {missing}")
+    print(tally.line(), flush=True)
+
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA's data sheet
 BF16_DENSE_FLOPS = 989e12  # H100 SXM bf16 dense tensor-core peak, same sheet
@@ -1877,6 +1927,7 @@ def check_full(dev_cuda, lat: dict) -> dict:
         graphs[name] = g = make()
         print(f"graph {name}: n={g.n} nnz={g.m} dmax={g.max_degree} "
               f"(built in {time.perf_counter() - t:.1f} s)", flush=True)
+    tally = reference_tally(9)
     for label, name, opts, kernels in FULL_RUNS:
         g = graphs[name]
         out = run_full(label, lambda: color(g, device=dev_cuda, **opts), kernels,
@@ -1886,6 +1937,7 @@ def check_full(dev_cuda, lat: dict) -> dict:
         for k, c in out["counts"].items():
             totals[k] += c
         r = out["result"]
+        tally.compare(label, [reference.item(g, r, "graph")])
         if label == f"ragged {name}":
             ragged[name] = out
         if label == "ragged rmat-er":
@@ -1932,6 +1984,7 @@ def check_full(dev_cuda, lat: dict) -> dict:
             print_tile_recs("K3", recs)
             del provider
         torch.cuda.empty_cache()
+    reference_done(tally)
     return {"launches": totals, "times": times, "graphs": graphs, "ragged": ragged}
 
 
@@ -2174,6 +2227,7 @@ def check_d2_full(graphs: dict, dev_cuda, lat: dict) -> dict:
           f"nnz={bg.nnz} (built in {time.perf_counter() - t:.1f} s)", flush=True)
     totals = {k.__name__: 0 for k in KERNELS}
     times = {}
+    tally = reference_tally(10)
     for label, name, opts, kernels in D2_FULL_RUNS:
         g = graphs[name]
         algorithm = "bipartite" if name == "jacobian_band" else "distance2"
@@ -2190,6 +2244,7 @@ def check_d2_full(graphs: dict, dev_cuda, lat: dict) -> dict:
                        what=str(opts), profile=not precomputed)
         for k, c in out["counts"].items():
             totals[k] += c
+        tally.compare(label, [reference.item(g, out["result"], "graph")])
         if not precomputed:
             times[f"k3 {label}"] = recs = two_hop_k3_times(g, dev_cuda, lat,
                                                            plain=name == "rmat-er")
@@ -2213,6 +2268,8 @@ def check_d2_full(graphs: dict, dev_cuda, lat: dict) -> dict:
                    what="(run_workefficient_loop, include_first_hop=True)")
     for k, c in out["counts"].items():
         totals[k] += c
+    tally.compare("d2_sgr_step rmat-er", [reference.item(g, out["result"], "graph")])
+    reference_done(tally)
     torch.cuda.empty_cache()
     times["k6"] = k6_times(g, dev_cuda, plain_rows=65536)
     torch.cuda.empty_cache()
@@ -2268,6 +2325,7 @@ def check_comparison(graphs: dict, ragged: dict, dev_cuda) -> dict:
     ladder on an unconverged run."""
     totals = {k.__name__: 0 for k in KERNELS}
     table = {}
+    tally = reference_tally(11)
     for name in PAPER:
         g = graphs[name]
         dd = ragged[name]
@@ -2277,6 +2335,7 @@ def check_comparison(graphs: dict, ragged: dict, dev_cuda) -> dict:
         rows["serial"] = ((time.perf_counter() - t) * 1e3, r.num_colors)
         if not is_valid_coloring(g, r.colors):
             fail(f"comparison {name}: serial coloring is not valid")
+        tally.compare(f"serial {name}", [reference.item(g, r, "graph")])
         print(f"comparison serial {name}: one run on the host, "
               f"{rows['serial'][0]:.3f} ms, colors={r.num_colors}", flush=True)
         for algorithm, opts, kernels in BASELINE_RUNS:
@@ -2290,11 +2349,13 @@ def check_comparison(graphs: dict, ragged: dict, dev_cuda) -> dict:
             for k, c in out["counts"].items():
                 totals[k] += c
             res = out["result"]
+            tally.compare(f"{algorithm} {name}", [reference.item(g, res, "graph")])
             rows[algorithm] = (out["ms"], res.num_colors)
             if algorithm == "threestep":
                 print(f"  serial_tail {res.serial_tail} of {g.n} vertices fixed on "
                       "the host", flush=True)
         table[name] = rows
+    reference_done(tally)
     serial_ms = {n: table[n]["serial"][0] for n in PAPER}
     print(f"comparison (host CPU of serial: {host_cpu()}): colors / serial's, "
           "data_driven's speedup = that algorithm's ms / data_driven's ms",
@@ -2340,10 +2401,10 @@ def check_comparison(graphs: dict, ragged: dict, dev_cuda) -> dict:
 # phase 12: the batched engine and streaming sessions at full size
 # --------------------------------------------------------------------------
 
-BATCH_SEEDS = (2, 12, 22, 32)  # rmat-er at 2^20: phase 9's graph is seed 2
-STREAM_ROUNDS = 4
-CHURN = 0.01  # benchmarks/dynamic.py's churn fraction and seed
-CHURN_SEED = 14
+# rmat-er at 2^20 (phase 9's graph is seed 2), benchmarks/dynamic.py's churn
+# fraction and seed: the record's (tests/repro_fullsize_record.py)
+BATCH_SEEDS, STREAM_ROUNDS = reference.BATCH_SEEDS, reference.STREAM_ROUNDS
+CHURN, CHURN_SEED = reference.CHURN, reference.CHURN_SEED
 
 
 @contextlib.contextmanager
@@ -2456,24 +2517,19 @@ def rmat_er(seed: int):
 
 def batch_graphs(first, pending: list) -> list:
     """Four rmat-er graphs at the paper's size: phase 9's (seed 2) and seeds
-    12, 22, 32 (``pending``: their builds, started in a process pool); a
-    seed whose pow2 width bucket differs from the first graph's is replaced
-    by the next seed by 10 (the recipe is unchanged)."""
-    key = _width_key(first, False)
-    graphs = [first]
-    for seed, job in zip(BATCH_SEEDS[1:], pending):
-        g = job.result()
-        for _ in range(5):
-            if _width_key(g, False) == key:
-                break
-            print(f"batch: rmat-er seed {seed} has dmax {g.max_degree}, outside "
-                  f"the bucket W <= {key}; taking seed {seed + 10}", flush=True)
-            seed += 10
-            g = rmat_er(seed)
-        print(f"batch graph rmat-er seed {seed}: n={g.n} nnz={g.m} "
-              f"dmax={g.max_degree}", flush=True)
-        graphs.append(g)
+    12, 22, 32 (``pending``: their builds, started in a process pool), by
+    the record's rule (``reference.batch_graphs``: a seed whose pow2 width
+    bucket differs from the first graph's is replaced by the next seed by
+    10)."""
+    G = reference.graphs_namespace("repro_torch")
+    graphs = reference.batch_graphs(G, first, [job.result() for job in pending])
+    for g in graphs[1:]:
+        print(f"batch graph rmat-er: n={g.n} nnz={g.m} dmax={g.max_degree}", flush=True)
     return graphs
+
+
+def batch_items(graphs, results) -> list:
+    return [reference.item(g, r, f"graph {i}") for i, (g, r) in enumerate(zip(graphs, results))]
 
 
 def timed_square(g):
@@ -2491,7 +2547,7 @@ def with_square(g, sq):
     return g
 
 
-def check_stream(graphs: dict, dev_cuda) -> dict:
+def check_stream(graphs: dict, dev_cuda, tally) -> dict:
     """Sessions on rmat-g and thermal2, 4 churn rounds each: per round the
     frontier, the host snapshot rebuild, the incremental recolor and the
     cold fused call on the mutated graph, work items, engine keys, validity
@@ -2508,6 +2564,7 @@ def check_stream(graphs: dict, dev_cuda) -> dict:
         print(f"stream {name}: open_session {(time.perf_counter() - t) * 1e3:.3f} ms "
               f"(cold fused colouring, {s.num_colors} colors) [{card_line()}]",
               flush=True)
+        items = [reference.item(s.graph, s.result, "open")]
         rng = np.random.default_rng(CHURN_SEED)
         mems, rounds = [], []
         for r in range(STREAM_ROUNDS):
@@ -2531,6 +2588,7 @@ def check_stream(graphs: dict, dev_cuda) -> dict:
                 fail(f"stream {name} round {r}: neither K1 nor K3 was launched")
             if not (res.converged and s.validate()):
                 fail(f"stream {name} round {r}: the session colouring is not valid")
+            items.append(reference.item(snap, res, f"round {r}"))
             cold_work = color(snap, device=dev_cuda, mode="fused").work_items  # warm-up
             cold_ms, _ = median_ms(lambda: color(snap, device=dev_cuda, mode="fused"))
             m = s.metrics()
@@ -2547,6 +2605,7 @@ def check_stream(graphs: dict, dev_cuda) -> dict:
                   f"engine keys hit/miss {m['engine_cache_hits']}/"
                   f"{m['engine_cache_misses']}, valid {s.validate()}, session "
                   f"memory {mems[-1] / 2**20:.1f} MiB [{card_line()}]", flush=True)
+        tally.compare(f"stream {name}", items)
         rem, add = churn_delta(s.graph, CHURN, rng)
         s.apply_delta(remove_edges=rem, add_edges=add)
         s.graph  # the snapshot, outside the profiled recolor
@@ -2636,9 +2695,11 @@ def check_serving(graphs: dict, dev_cuda) -> dict:
           "side in a process pool", flush=True)
     print(f"batch four rmat-er: dmax {[g.max_degree for g in four]}, buckets "
           f"{bucketed(four)}", flush=True)
+    tally = reference_tally(12)
     out = counted_batch("batch four rmat-er", lambda: color_batch(four, device=dev_cuda),
                         four, is_valid_coloring, len(bucketed(four)))
     add(out["counts"])
+    tally.compare("batch four rmat-er", batch_items(four, out["results"]))
     time_batch("batch four rmat-er", four, dev_cuda)
     buckets = bucketed(mix)
     print(f"serving mix (16, 40): n {[g.n for g in mix]}, dmax "
@@ -2647,6 +2708,7 @@ def check_serving(graphs: dict, dev_cuda) -> dict:
     out = counted_batch("serving mix", lambda: color_batch(mix, device=dev_cuda), mix,
                         is_valid_coloring, len(buckets))
     add(out["counts"])
+    tally.compare("serving mix", batch_items(mix, out["results"]))
     time_batch("serving mix", mix, dev_cuda)
     d2b = bucketed(d2mix, True)
     secs = [round(sec, 3) for _, sec in squares]
@@ -2658,9 +2720,11 @@ def check_serving(graphs: dict, dev_cuda) -> dict:
                         lambda: color_batch(d2mix, "distance2", device=dev_cuda),
                         d2mix, validate_d2, len(d2b))
     add(out["counts"])
+    tally.compare("batched distance-2", batch_items(d2mix, out["results"]))
     time_batch("batched distance-2", d2mix, dev_cuda, distance2=True)
-    stream = check_stream(graphs, dev_cuda)
+    stream = check_stream(graphs, dev_cuda, tally)
     add(stream["launches"])
+    reference_done(tally)
     sbatch = check_session_batch(four, dev_cuda)
     add(sbatch["launches"])
     return {"launches": totals, "mix": mix}
@@ -3702,6 +3766,34 @@ SPLIT_CASES = {
     "2x2, moe_group=flat, moe_chunk=128": ((2, 2), dict(moe_group="flat", moe_chunk=128),
                                            964_468_736),
 }
+# phase 17 (c): reduced rwkv6-1.6b's decode step with heads of 16 channels
+# (decode_32k's mode at batch 8, sequence 64) on a fake group of 8, (2, 4):
+# "model" splits the heads and the cache splits the state's rows, so the
+# state moves onto the heads' split and each layer's step runs on local
+# shards (torch 2.11 refuses the products' fold otherwise; ROADMAP F16).
+# (mesh, config overrides, repro's per-device FLOPs, local-shard steps);
+# repro's count as SPLIT_CASES' (tests/test_torch_dryrun.py holds it)
+DECODE_CASE = ((2, 4), dict(rwkv_head_dim=16), 208_896, 2)
+DECODE_PROBE = """
+import dataclasses, json, sys
+sys.path.insert(0, "src")
+import repro_torch.models.rwkv6 as rwkv6
+from repro_torch.configs import get_config
+from repro_torch.launch.dryrun import build_step, make_mesh
+from repro_torch.launch.op_analysis import analyze_step
+local, steps = rwkv6._local_heads, []
+def counted(fn, *args):
+    out = local(fn, *args)
+    steps.append(out is not None)
+    return out
+rwkv6._local_heads = counted
+mesh = make_mesh({shape}, ("data", "model"))
+cfg = dataclasses.replace(get_config("rwkv6-1.6b").reduced(), **{overrides})
+step = build_step("rwkv6-1.6b", "decode_32k", mesh, cfg=cfg,
+                  info=dict(seq=64, batch=8, mode="decode"))
+print(json.dumps({{"flops": analyze_step(step["fn"], mesh=mesh).flops,
+                  "local_steps": sum(steps), "steps": len(steps)}}))
+"""
 # the dry run of phase 16's step, on meta under a fake group of one (its own
 # process: a process group is global to a process)
 DRYRUN_PROBE = """
@@ -3845,6 +3937,10 @@ def check_mesh(dev_cuda, phase16: dict) -> dict:
             probes[case] = subprocess.Popen(
                 [sys.executable, "-c", SPLIT_PROBE.format(shape=shape, overrides=overrides)],
                 cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        shape, overrides, _, _ = DECODE_CASE
+        probes["rwkv6 decode"] = subprocess.Popen(
+            [sys.executable, "-c", DECODE_PROBE.format(shape=shape, overrides=overrides)],
+            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
         cut = dataclasses.replace(cfg, n_layers=MESH_CUT_LAYERS)
         data = SyntheticData.for_model(cut, B, S, seed=0)
@@ -3928,6 +4024,15 @@ def check_mesh(dev_cuda, phase16: dict) -> dict:
               flush=True)
         if not abs(d) <= SPLIT_TOL:
             fail(f"mesh dry run {case}: FLOPs {got} against repro's {want}")
+    shape, overrides, want, local = DECODE_CASE
+    got = out["rwkv6 decode"]
+    print(f"  mesh dry run of reduced rwkv6-1.6b's decode step, {overrides}, on a fake "
+          f"group of {shape[0] * shape[1]} (torch {torch.__version__}): traced; per-device "
+          f"FLOPs {got['flops']:.0f} against repro's {want}; {got['local_steps']} of "
+          f"{got['steps']} steps on local shards (want {local})", flush=True)
+    if got["flops"] != want or got["local_steps"] != local:
+        fail(f"mesh dry run rwkv6 decode: {got} against repro's {want} FLOPs, {local} "
+             "steps on local shards")
     return {"ms": ms, "flops": flops, "dry_mib": dry_mib}
 
 

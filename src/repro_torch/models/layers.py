@@ -283,6 +283,34 @@ def _redistributed(t, placements):
     return t.redistribute(t.device_mesh, placements)
 
 
+def channels_split(t) -> bool:
+    """Whether ``t`` is a ``DTensor`` split over its last dim (a head's
+    channels: where the heads do not divide "model")."""
+    return is_dtensor(t) and any(p.is_shard(t.ndim - 1) for p in t.placements)
+
+
+def whole_channels(t):
+    """A ``DTensor`` split over its last dim gathered over it, its other
+    splits kept."""
+    from torch.distributed.tensor import Replicate
+
+    return t.redistribute(t.device_mesh, [Replicate() if p.is_shard(t.ndim - 1) else p
+                                          for p in t.placements])
+
+
+def placed_like(t, like):
+    """``t`` placed as ``like``, a ``DTensor`` of as many dims that shares
+    its leading dims: a decode step's token, state or carry brought to one
+    placement with the operand it meets (a decode cell's cache may split a
+    carry transposed to the step's token: the hidden dim over the data
+    axes, the batch over "model"), so the step's ops meet no operands
+    placed apart, whose redistribution each torch picks its own way.
+    ``t`` itself off a mesh."""
+    if not (is_dtensor(t) and is_dtensor(like)):
+        return t
+    return _redistributed(t, like.placements)
+
+
 def pad_seq(t, n: int, value=0):
     """``t`` (B, S, ...) with ``n`` steps of ``value`` after its last along
     dim 1: ``F.pad`` on a plain tensor; on a ``DTensor`` a ``cat`` with a

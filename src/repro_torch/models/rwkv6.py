@@ -27,8 +27,11 @@ from repro_torch.models.layers import (
     gather_operand,
     is_dtensor,
     linear,
+    channels_split,
     new_param,
     pad_seq,
+    placed_like,
+    whole_channels,
 )
 
 __all__ = ["RWKV", "rwkv_time_mix", "rwkv_time_mix_step", "rwkv_channel_mix",
@@ -152,21 +155,6 @@ def _summed(t):
                                           for p in t.placements])
 
 
-def _channels_split(t) -> bool:
-    """Whether ``t`` is a ``DTensor`` split over its last dim (a head's
-    channels: where the heads do not divide "model")."""
-    return is_dtensor(t) and any(p.is_shard(t.ndim - 1) for p in t.placements)
-
-
-def _whole_channels(t):
-    """A ``DTensor`` split over its last dim gathered over it, its other
-    splits kept."""
-    from torch.distributed.tensor import Replicate
-
-    return t.redistribute(t.device_mesh, [Replicate() if p.is_shard(t.ndim - 1) else p
-                                          for p in t.placements])
-
-
 def _share(x) -> int:
     """The positions of ``x`` (B, S, ...) that one device holds (S off a
     mesh)."""
@@ -196,7 +184,7 @@ def _head_mean(t):
     divided, so the statistics come back whole and ``t`` stays split
     (``DTensor``'s own mean leaves a ``Partial(avg)`` that it then meets
     by gathering ``t``)."""
-    if not _channels_split(t):
+    if not channels_split(t):
         return t.mean(-1, keepdim=True)
     return _summed(t.sum(-1, keepdim=True)) / t.shape[-1]
 
@@ -283,6 +271,183 @@ def _wkv_step(r, k, v, w, u, state):
     return out, state * w[..., None] + kv
 
 
+class _AcrossShares:
+    """A WKV chunk placed as XLA places ``repro``'s where a chunk spans
+    devices' shares of the sequence and "model" splits a head's channels
+    (``rwkv_time_mix`` where ``in_share`` is false): "model" (M devices,
+    shares of S/M positions) factors, as ``moe._SeqSplit`` factors it,
+    into m2 = L / share over a chunk's positions ("model_lo") and m1 =
+    M / m2 over its channels ("model").  Inside a chunk r, k and the
+    log-decay keep both splits, v comes whole over its channels and
+    split over the positions, the state (B,H,K,V) splits its rows over
+    m1 and is whole over m2 (``_split_chunk_wkv``); every device runs
+    every chunk, and its share of the positions (chunk ``hi``'s half
+    ``lo``) is its share of the sequence again after the loop."""
+
+    def __init__(self, mesh, m1: int, m2: int):
+        from repro_torch.models.moe import _factored
+
+        self.mesh, self.mesh3 = mesh, _factored(mesh, m1, m2)
+
+    @staticmethod
+    def of(seq, S: int, vc):
+        """The factoring where ``seq`` (the placements ``x`` came with)
+        splits the sequence over "model" alone into shares that a chunk
+        spans and tiles, and ``vc`` (n,B,H,L,V) splits its channels over
+        "model" alone, by a multiple of m1; None elsewhere."""
+        if seq is None or not is_dtensor(vc):
+            return None
+        from torch.distributed.tensor import Shard
+
+        mesh = vc.device_mesh
+        M, L, K = mesh.size(mesh.ndim - 1), vc.shape[3], vc.shape[4]
+        if ((mesh.mesh_dim_names or ())[-1:] != ("model",) or seq[-1] != Shard(1)
+                or vc.placements[-1] != Shard(4) or S % L or S % M or K % M
+                or any(p.is_shard(1) for p in seq[:-1])
+                or any(p.is_shard(4) for p in vc.placements[:-1])):
+            return None
+        share = S // M
+        if L % share or M % (L // share):
+            return None
+        return _AcrossShares(mesh, M // (L // share), L // share)
+
+    def _to3(self, t, m1, m2):
+        """``t`` (last placement ``Shard`` or ``Replicate`` on "model") on
+        the factored mesh, then placed ``m1`` over "model" and ``m2`` over
+        "model_lo", its other placements kept."""
+        from repro_torch.models.moe import _moved
+
+        pl = tuple(t.placements)
+        t3 = _moved(t, self.mesh3, (*pl, pl[-1]), t.shape)
+        return _redistributed(t3, (*pl[:-1], m1, m2))
+
+    def run(self, lwc, kc, vc, rc, u, s):
+        """The chunk loop: ``(out (B,S,H,K) split over the sequence as
+        ``x`` came, the last state placed as ``s`` came)``."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        from repro_torch.models.moe import _moved
+
+        n, B, H, L, K = kc.shape
+        ch, pos = Shard(4), Shard(3)
+        lwc, kc, rc = (self._to3(t, ch, pos) for t in (lwc, kc, rc))
+        vc = self._to3(vc, Replicate(), pos)
+        u = self._to3(u, Shard(1), Replicate())
+        state_pl = tuple(s.placements)
+        s = self._to3(s, Shard(2), Replicate())
+        outs = []
+        for i in range(n):
+            out, s = _split_chunk_wkv(rc[i], kc[i], vc[i], lwc[i], u, s)
+            outs.append(out)
+        # (n,B,H,L,V): chunk hi's positions lo on device (hi, lo) are its
+        # share of the sequence
+        out = torch.stack(outs)
+        pl = (*out.placements[:-2], Shard(0), Shard(3))
+        out = _redistributed(out, pl).permute(1, 0, 3, 2, 4)
+        out = _moved(out, self.mesh, (*out.placements[:-2], Shard(1)), (B, n * L, H, K))
+        s = _redistributed(s, (*s.placements[:-1], s.placements[-2]))
+        s = _moved(s, self.mesh, (*s.placements[:-1],), s.shape)
+        return out, _redistributed(s, state_pl)
+
+
+class _MaskedAV(torch.autograd.Function):
+    """``out = tril(A)[..., s] @ v[s]`` over the columns ``s`` of this
+    device's part (``part`` of ``parts``) of a chunk's positions, on local
+    tensors: ``A`` (B,H,t,L) a device's rows ``t`` (from ``t0``) of the
+    scores, whole over its part; ``v`` (B,H,L,V) whole.  The product over
+    the part is a partial sum over the parts.  Its backward takes the
+    scores' gradient over every column at once, ``dout @ v^T`` (the same
+    on every part, so whole there), and ``v``'s over the part's rows (a
+    partial sum): XLA's products for ``repro``'s chunk."""
+
+    @staticmethod
+    def forward(ctx, A, v, t0: int, part: int, parts: int):
+        t, L = A.shape[-2], A.shape[-1]
+        w = L // parts
+        rows = torch.arange(t0, t0 + t, device=A.device)[:, None]
+        mask = rows > torch.arange(L, device=A.device)[None, :]
+        ctx.save_for_backward(A, v, mask)
+        ctx.cols = (part * w, w)
+        Am = torch.where(mask, A, 0.0)
+        return torch.matmul(Am.narrow(-1, part * w, w), v.narrow(-2, part * w, w))
+
+    @staticmethod
+    def backward(ctx, dout):
+        A, v, mask = ctx.saved_tensors
+        c0, w = ctx.cols
+        dA = torch.where(mask, torch.matmul(dout, v.transpose(-1, -2)), 0.0)
+        Am = torch.where(mask, A, 0.0).narrow(-1, c0, w)
+        dv = torch.zeros_like(v)
+        dv.narrow(-2, c0, w).copy_(torch.matmul(Am.transpose(-1, -2), dout))
+        return dA, dv, None, None, None
+
+
+def _on_shards(eq: str, a, b, out_pl, a_grad=None, b_grad=None):
+    """``torch.einsum(eq, a, b)`` of two ``DTensor``s on their local shards
+    (each device's product its own, no collective and no search for a
+    sharding strategy), the result a ``DTensor`` placed ``out_pl`` (a
+    partial sum where the contraction is split); each operand's gradient
+    comes back placed ``a_grad`` / ``b_grad`` (its own placements by
+    default; a partial sum where the operand is whole over a mesh dim that
+    splits the other one)."""
+    from torch.distributed.tensor import DTensor
+
+    size = dict(zip(eq.split("->")[0].split(",")[0], a.shape)) | dict(
+        zip(eq.split("->")[0].split(",")[1], b.shape))
+    shape = torch.Size(size[c] for c in eq.split("->")[1])
+    out = torch.einsum(eq, a.to_local(grad_placements=a_grad or a.placements),
+                       b.to_local(grad_placements=b_grad or b.placements))
+    return DTensor.from_local(out, a.device_mesh, out_pl, run_check=False, shape=shape,
+                              stride=contiguous_stride(shape))
+
+
+def _split_chunk_wkv(r, k, v, lw, u, state):
+    """``_chunk_wkv`` on ``_AcrossShares``' factored mesh: r, k, lw
+    (B,H,L,K) split over K on "model" and over L on "model_lo", v whole
+    over V and split over L, ``u`` split over K, ``state`` (B,H,K,V) split
+    over K and whole over "model_lo".  Returns ``(out (B,H,L,V) whole over
+    "model", split over L; the new state)``: r·kᵀ over the device's positions and
+    channels against every position (k gathered over the positions), the
+    scores made whole over the channels, A·v over the device's part of
+    the columns (``_MaskedAV``), the inter-chunk term over its positions
+    and channels, the state's update over its positions, each partial sum
+    reduced where it is whole."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    def whole_t(t):
+        return _redistributed(t, (*t.placements[:-1], Replicate()))
+
+    def own_t(t):
+        return _redistributed(t, (*t.placements[:-1], Shard(2)))
+
+    data = tuple(r.placements[:-2])
+    rf, kf, vf = r.float(), k.float(), v.float()
+    Lcum = _cumsum_time(whole_t(lw))                       # inclusive, every position
+    r_t = rf * torch.exp(own_t(Lcum) - lw)                 # decayed queries
+    k_t = whole_t(kf) * torch.exp(torch.clamp(-Lcum, max=_CLAMP))
+    rows = (*data, Partial(), Shard(2))                    # a chunk's rows, summed over K
+    A = _summed(_on_shards("bhtk,bhsk->bhts", r_t, k_t, rows,
+                           b_grad=(*data, Shard(3), Partial())))
+    diag = _summed(_on_shards("bhtk,bhtk->bht", rf * u[None, :, None, :], kf, rows))
+    mesh = A.device_mesh
+    hi, lo = mesh.get_coordinate()[-2:]
+    av = _MaskedAV.apply(A.to_local(grad_placements=A.placements),
+                         whole_t(vf).to_local(grad_placements=(*data, Partial(), Partial())),
+                         lo * (A.shape[2] // mesh.size(mesh.ndim - 1)), hi,
+                         mesh.size(mesh.ndim - 2))
+    av = DTensor.from_local(av, mesh, rows, run_check=False, shape=vf.shape,
+                            stride=contiguous_stride(vf.shape))
+    inter = _on_shards("bhtk,bhkv->bhtv", r_t, state, rows,
+                       b_grad=(*data, Shard(2), Partial()))
+    out = _summed(av + inter) + diag[..., None] * vf
+    Dlast = Lcum[:, :, -1:, :]                             # (B,H,1,K)
+    kd = kf * torch.exp(own_t(Dlast - Lcum))               # exponent <= 0
+    kv = _on_shards("bhsk,bhsv->bhkv", kd, vf, (*data, Shard(2), Partial()),
+                    b_grad=(*data, Partial(), Shard(2)))
+    new_state = state * torch.exp(Dlast[:, :, 0, :, None]) + _summed(kv)
+    return out, new_state
+
+
 def rwkv_time_mix(p, x, H, *, shift_carry=None, state=None):
     """Full-sequence time-mix. x (B,S,d). Returns (y, (last_x, state))."""
     B, S, d = x.shape
@@ -303,22 +468,27 @@ def rwkv_time_mix(p, x, H, *, shift_carry=None, state=None):
 
     # zero padding is the mask: padded steps have lw = 0 and k = 0
     lwc, kc, vc, rc = chunks(lw.float()), chunks(k), chunks(v), chunks(r)
-    # v whole over its channels (one gather, every chunk) where "model"
-    # splits them and a chunk lies inside a share of the sequence: XLA's
-    # placement of repro's chunk there (across shares it also splits a
-    # chunk's positions, which the port does not: ROADMAP Queue C)
-    split = in_share and _channels_split(vc)
-    if split:
-        vc = _whole_channels(vc)
     s = state if state is not None else _state_like(
         x.new_zeros((B, H, K, K), dtype=torch.float32), kc)
-    outs = []
-    for i in range(n):
-        args = (rc[i], kc[i], vc[i], lwc[i], p.u, s)
-        out, s = _local_heads(_chunk_wkv, *args) or _chunk_wkv(*args)
-        outs.append(out)
-    out = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(B, n * L, H, K)[:, :S]
-    if split:   # whole heads come out: normed whole, then split as g (the gradient gathered)
+    across = None if in_share else _AcrossShares.of(seq, S, vc)
+    # v whole over its channels (one gather, every chunk) where "model"
+    # splits them and a chunk lies inside a share of the sequence: XLA's
+    # placement of repro's chunk there
+    split = in_share and channels_split(vc)
+    if across is not None:
+        out, s = across.run(lwc, kc, vc, rc, p.u, s)
+    else:
+        if split:
+            vc = whole_channels(vc)
+        outs = []
+        for i in range(n):
+            args = (rc[i], kc[i], vc[i], lwc[i], p.u, s)
+            out, s = _local_heads(_chunk_wkv, *args) or _chunk_wkv(*args)
+            outs.append(out)
+        out = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(B, n * L, H, K)[:, :S]
+    if across is not None or split:
+        # whole heads come out: normed whole, then split as g (the gradient
+        # gathered)
         y = _redistributed(_group_norm(out, _whole(p.gn_scale)), g.placements)
     else:
         y = _group_norm(out, p.gn_scale)
@@ -330,15 +500,22 @@ def rwkv_time_mix_step(p, x, H, shift_carry, state):
     """Exact one-token recurrence. x (B,1,d); state (B,H,K,V) float32."""
     B, _, d = x.shape
     K = d // H
+    # the token placed as the cache's token-shift carry (the hidden dim
+    # over the data axes, the batch over "model"), so the mixes meet no
+    # transposed operand, whose redistribution each torch picks its own way
+    x = placed_like(x, shift_carry[:, None])
     lw, k, v, r, g = _project(p, x, shift_carry[:, None])
     w = torch.exp(lw[:, 0].reshape(B, H, K))
     kh = k[:, 0].reshape(B, H, K).float()
     vh = v[:, 0].reshape(B, H, K).float()
     rh = r[:, 0].reshape(B, H, K).float()
-    args = (rh, kh, vh, w, p.u, state)
+    # the cache's state, split over its rows, moved onto the step's head
+    # split (an all-to-all) and the new state moved back, as XLA places
+    # repro's decode step: the step runs on local shards
+    args = (rh, kh, vh, w, p.u, placed_like(state, rh))
     out, new_state = _local_heads(_wkv_step, *args) or _wkv_step(*args)
     y = _group_norm(out.reshape(B, 1, H, K), p.gn_scale).to(x.dtype) * F.silu(g)
-    return linear(y, p.Wo), x[:, -1], new_state
+    return linear(y, p.Wo), x[:, -1], placed_like(new_state, state)
 
 
 def rwkv_channel_mix(p, x, *, shift_carry=None):
@@ -356,4 +533,4 @@ def rwkv_channel_mix(p, x, *, shift_carry=None):
 
 
 def rwkv_channel_mix_step(p, x, shift_carry):
-    return rwkv_channel_mix(p, x, shift_carry=shift_carry)
+    return rwkv_channel_mix(p, placed_like(x, shift_carry[:, None]), shift_carry=shift_carry)

@@ -31,6 +31,7 @@ from repro_torch.models.layers import (
     _head_rmsnorm,
     attention,
     cache_write,
+    channels_split,
     constrain,
     dense_init_,
     gather_operand,
@@ -42,6 +43,7 @@ from repro_torch.models.layers import (
     rope_apply,
     sharding_mesh,
     split_heads,
+    whole_channels,
 )
 from repro_torch.models.mla import MLA, mla_attention, mla_decode_absorbed
 from repro_torch.models.moe import MoE, moe_apply
@@ -205,6 +207,18 @@ def _attn_qkv(p, x, positions, cfg):
     return q, k, v
 
 
+def _merged_heads(out):
+    """The attention's output (B, S, H, Dh) as (B, S, H * Dh).  On a
+    ``DTensor`` split over Dh (heads that do not divide "model") it is
+    gathered over Dh first: the merge would leave a strided split (no block
+    of ``wo``'s rows), which the product gathers anyway, and torch 2.11's
+    ``DTensor`` refuses the merge of a split Dh."""
+    B, S = out.shape[:2]
+    if out.shape[2] > 1 and channels_split(out):
+        out = whole_channels(out)
+    return out.reshape(B, S, -1)
+
+
 def _attn_block(p, x, cfg, positions, mode, cache, pos):
     B, S, _ = x.shape
     if mode != "decode":
@@ -212,7 +226,7 @@ def _attn_block(p, x, cfg, positions, mode, cache, pos):
         out = attention(q, k, v, q_pos=positions, k_pos=positions,
                         causal=cfg.causal, window=cfg.window,
                         q_chunk=cfg.attn_q_chunk, chunk_remat=cfg.attn_chunk_remat)
-        y = linear(out.reshape(B, S, -1), p.wo, reduce_dims=(1,))
+        y = linear(_merged_heads(out), p.wo, reduce_dims=(1,))
         if mode == "prefill":
             if cfg.window and cfg.window < S:          # ring buffer: last Wd keys
                 # key S - Wd + j goes to slot (S - Wd + j) % Wd: a roll by
@@ -240,7 +254,7 @@ def _attn_block(p, x, cfg, positions, mode, cache, pos):
     cache_write(cache["v"], slot, v)
     out = attention(q, cache["k"], cache["v"], q_pos=positions, k_pos=k_pos,
                     causal=True, window=None, q_chunk=cfg.attn_q_chunk)
-    return linear(out.reshape(B, 1, -1), p.wo)
+    return linear(_merged_heads(out), p.wo)
 
 
 def _mla_block(p, x, cfg, positions, mode, cache, pos):

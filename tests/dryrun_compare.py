@@ -23,7 +23,9 @@ chunks a layer); ``--by-op`` adds each package's FLOPs by matmul shape
 counts; the port: each local ``mm``/``bmm``) and its collective bytes by
 op (``repro``: each collective's kind, output type and group size; the
 port: the same), the port's each with the ``repro_torch`` lines that
-issued it (``_call_site``): the op-by-op comparison.
+issued it (``_call_site``): the op-by-op comparison.  The port's side
+also counts the RWKV-6 chunks and decode steps that ran on local shards
+(``local_heads``: ``rwkv6._local_heads`` by function).
 """
 from __future__ import annotations
 
@@ -188,53 +190,94 @@ def run_port(arch, shape_name, mesh_shape, info, full, remat=True, by_op=False,
                      f"{_call_site()}"] += self.cost.collective_bytes - before
 
         OA._Recorder._collective = collective
+    import repro_torch.models.rwkv6 as rwkv6
+
+    local = rwkv6._local_heads
+    on_shards = collections.Counter()
+
+    def counted_local(fn, *args):
+        out = local(fn, *args)
+        on_shards[fn.__name__] += out is not None
+        return out
+
+    rwkv6._local_heads = counted_local
     t = time.time()
-    step = build_step(arch, shape_name, mesh, cfg=cfg, info=info)
-    cost = OA.analyze_step(step["fn"], mesh=mesh)
+    try:
+        step = build_step(arch, shape_name, mesh, cfg=cfg, info=info)
+        cost = OA.analyze_step(step["fn"], mesh=mesh)
+    finally:
+        rwkv6._local_heads = local
     out = {"flops": cost.flops, "traffic": cost.traffic,
-           "collective_bytes": cost.collective_bytes, "seconds": time.time() - t}
+           "collective_bytes": cost.collective_bytes, "seconds": time.time() - t,
+           "local_heads": dict(on_shards)}
     if by_op:
         out["by_op"], out["collectives_by_op"] = dict(per_op), dict(per_coll)
     return out
 
 
-def start(archs, shape_name="train_4k", mesh_shape=(2, 2), batch=8, seq=64, full=False,
-          remat=True, by_op=False, overrides="") -> dict:
-    """One subprocess a (package, arch), all started at once:
-    ``{(arch, side): Popen}`` for ``finish``."""
-    procs = {}
+def start_cells(cells: dict, processes: int = 4) -> list:
+    """``cells`` (``{name: dict(arch=, shape=, mesh=, batch=8, seq=64,
+    remat=True, overrides="", full=False, by_op=False)}``) run in
+    ``processes`` processes a package, each cell in one of them, all
+    started at once (a process compiles or traces its cells in turn, so
+    JAX, torch and a compile's setup load once a process, not once a
+    cell): handles for ``finish_cells``."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), JAX_PLATFORMS="cpu",
                OMP_NUM_THREADS="1")
-    for arch in archs:
-        for side in ("repro", "port"):
-            cmd = [sys.executable, os.path.abspath(__file__), "--one", side, "--archs", arch,
-                   "--shape", shape_name, "--mesh", "x".join(map(str, mesh_shape)),
-                   "--batch", str(batch), "--seq", str(seq)] + (["--full"] if full else []) + (
-                   [] if remat else ["--no-remat"]) + (["--by-op"] if by_op else []) + (
-                   ["--set", overrides] if overrides else [])
-            procs[arch, side] = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
-                                                 stderr=subprocess.PIPE, text=True)
+    # the largest meshes first, each to the process with the least mesh
+    # devices so far (a trace's time grows with them)
+    parts = [{} for _ in range(min(processes, len(cells)))]
+    load = [0] * len(parts)
+    for n in sorted(cells, key=lambda n: -math.prod(cells[n]["mesh"])):
+        i = load.index(min(load))
+        parts[i][n] = cells[n]
+        load[i] += math.prod(cells[n]["mesh"])
+    procs = []
+    for side in ("repro", "port"):
+        for part in parts:
+            cmd = [sys.executable, os.path.abspath(__file__), "--one", side,
+                   "--cells", json.dumps(part)]
+            procs.append((side, subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                                 stderr=subprocess.PIPE, text=True)))
     return procs
 
 
-def finish(procs: dict, timeout=900) -> dict:
-    """``{arch: {"repro": counts, "port": counts}}`` from ``start``'s
-    processes."""
+def finish_cells(procs: list, timeout=900) -> dict:
+    """``{name: {"repro": counts, "port": counts}}`` from ``start_cells``."""
     out: dict = {}
-    for (arch, side), p in procs.items():
+    for side, p in procs:
         stdout, stderr = p.communicate(timeout=timeout)
         if p.returncode != 0:
-            raise RuntimeError(f"{side} {arch} failed:\n{stderr[-3000:]}")
-        out.setdefault(arch, {})[side] = json.loads(stdout.strip().splitlines()[-1])
+            raise RuntimeError(f"{side} cells failed:\n{stderr[-3000:]}")
+        for name, counts in json.loads(stdout.strip().splitlines()[-1]).items():
+            out.setdefault(name, {})[side] = counts
+    return out
+
+
+def _run_cells(side: str, cells: dict) -> dict:
+    """This process's ``--cells``, one after another."""
+    if side == "repro":
+        os.environ["REPRO_DRYRUN_FLAGS"] = ("--xla_force_host_platform_device_count="
+                                            f"{max(math.prod(c['mesh']) for c in cells.values())}")
+    run = run_repro if side == "repro" else run_port
+    out = {}
+    for name, c in cells.items():
+        mode = {"train_4k": "train", "prefill_32k": "prefill"}.get(c["shape"], "decode")
+        out[name] = run(c["arch"], c["shape"], tuple(c["mesh"]),
+                        dict(seq=c.get("seq", 64), batch=c.get("batch", 8), mode=mode),
+                        c.get("full", False), c.get("remat", True), c.get("by_op", False),
+                        _overrides(c.get("overrides", "")))
     return out
 
 
 def compare(archs, shape_name="train_4k", mesh_shape=(2, 2), batch=8, seq=64,
             full=False, remat=True, by_op=False, overrides="", timeout=900) -> dict:
-    """``{arch: {"repro": counts, "port": counts}}``, one subprocess a
+    """``{arch: {"repro": counts, "port": counts}}``, one process a
     (package, arch), all at once."""
-    return finish(start(archs, shape_name, mesh_shape, batch, seq, full, remat, by_op,
-                        overrides), timeout)
+    cells = {arch: dict(arch=arch, shape=shape_name, mesh=mesh_shape, batch=batch, seq=seq,
+                        full=full, remat=remat, by_op=by_op, overrides=overrides)
+             for arch in archs}
+    return finish_cells(start_cells(cells, processes=len(archs)), timeout)
 
 
 def main(argv=None):
@@ -251,7 +294,11 @@ def main(argv=None):
     ap.add_argument("--timeout", type=float, default=900,
                     help="seconds each comparison process may take")
     ap.add_argument("--one", choices=("repro", "port"), help=argparse.SUPPRESS)
+    ap.add_argument("--cells", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.cells:
+        print(json.dumps(_run_cells(args.one, json.loads(args.cells))))
+        return
     mesh_shape = tuple(int(x) for x in args.mesh.split("x"))
     if args.archs == "all":
         sys.path.insert(0, os.path.join(ROOT, "src"))

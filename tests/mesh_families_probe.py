@@ -55,9 +55,12 @@ def _rel(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
 
 
-def _paths(arch: str, mesh, overrides=None, seq: int = SEQ):
+def _paths(arch: str, mesh, overrides=None, seq: int = SEQ, placed_caches: bool = False):
     """Each path on the mesh against the same path without one (a batch
-    of ``seq`` positions); returns the worst relative error it saw."""
+    of ``seq`` positions); returns the worst relative error it saw.  With
+    ``placed_caches`` the decode step reads the prefill's caches placed as
+    ``cache_shardings`` places a decode cell's, not as the prefill left
+    them."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -85,6 +88,11 @@ def _paths(arch: str, mesh, overrides=None, seq: int = SEQ):
             return None
         prompt = {k: v for k, v in batch.items() if k != "labels"}
         caches, logits = model.prefill(prompt, seq + 4)
+        if placed_caches:
+            from repro_torch.distributed.sharding import cache_shardings
+
+            caches = [{k: t.redistribute(mesh, sh[k].placements) for k, t in layer.items()}
+                      for layer, sh in zip(caches, cache_shardings(caches, mesh, cfg))]
         want_caches, want_logits = plain.prefill(
             {k: v for k, v in whole.items() if k != "labels"}, seq + 4)
         token = torch.zeros((BATCH, 1), dtype=torch.int32)
@@ -111,7 +119,15 @@ def _paths(arch: str, mesh, overrides=None, seq: int = SEQ):
 # 64 positions on 2x2: each WKV chunk of 32 lies in a share of the
 # sequence, so v comes whole over the head's split channels; with heads of
 # 16 channels "model" splits the heads, as at full size, and each chunk
-# runs on the local shards (``rwkv6._local_chunk``).
+# runs on the local shards (``rwkv6._local_heads``).  rwkv6 at 64 positions
+# on 1x4: a chunk spans two devices' shares, so "model" factors into two
+# over its positions and two over the head's channels
+# (``rwkv6._AcrossShares``).  ``PLACED_CACHES``: the decode step reads its
+# caches placed as a decode cell's, the state's rows split where the step
+# splits the heads (``layers.placed_like``).  recurrentgemma with three heads
+# on 2x2: "model" splits the head dim, which the attention's output
+# gathers before its heads merge (``transformer._merged_heads``), as at full
+# size (ten heads on 16).
 CASES = {
     "mixtral-8x22b:split-span": ("mixtral-8x22b", {"n_experts": 3, "moe_group_seq": 8}, (1, 4)),
     "mixtral-8x22b:split-share": ("mixtral-8x22b", {"n_experts": 3, "moe_group_seq": 4},
@@ -122,7 +138,11 @@ CASES = {
     "deepseek-v2-236b:router-2x2": ("deepseek-v2-236b", {"d_model": 512}, (2, 2)),
     "rwkv6-1.6b:chunk-in-share": ("rwkv6-1.6b", None, (2, 2), 64),
     "rwkv6-1.6b:heads": ("rwkv6-1.6b", {"rwkv_head_dim": 16}, (2, 2), 64),
+    "rwkv6-1.6b:chunk-span": ("rwkv6-1.6b", None, (1, 4), 64),
+    "rwkv6-1.6b:decode-cache": ("rwkv6-1.6b", {"rwkv_head_dim": 16}, (1, 4), 64),
+    "recurrentgemma-2b:split-head-dim": ("recurrentgemma-2b", {"n_heads": 3}, (2, 2)),
 }
+PLACED_CACHES = {"rwkv6-1.6b:decode-cache"}
 
 
 def _worker(rank: int, port: int, archs: list, out: str):
@@ -140,7 +160,8 @@ def _worker(rank: int, port: int, archs: list, out: str):
             if shape not in meshes:
                 meshes[shape] = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
             try:
-                paths = _paths(base, meshes[shape], overrides, *seq)
+                paths = _paths(base, meshes[shape], overrides, *seq,
+                               placed_caches=arch in PLACED_CACHES)
             except Exception as exc:   # noqa: BLE001 - the probe reports every failure
                 res[(arch, "build")] = _where(exc)
                 continue

@@ -16,9 +16,15 @@ CPU, mirroring ``tests/test_dryrun.py`` and held against ``repro``'s.
   within 2% (rwkv6-1.6b: 4% below, the dead products of XLA's scan;
   ``tests/dryrun_compare.py --by-op`` prints them op by op), and the MoE
   families', recurrentgemma's and rwkv6's collective bytes
-  stay within 1.15x; rwkv6 with remat off and a deepseek-v2 whose router
-  the resolver leaves whole over "model", as at full size, are held to
-  both bounds;
+  stay within 1.15x; rwkv6 with remat off, rwkv6 on 1x4 and 2x4 (a WKV
+  chunk across devices' shares of the sequence), recurrentgemma with five
+  heads on 2x4 and a deepseek-v2 whose router the resolver leaves whole
+  over "model", as at full size, are held to both bounds;
+* rwkv6's gap is exactly XLA's dead scan products (``rwkv6_gap``) on
+  every rwkv6 cell, recurrentgemma's five-head gap exactly the product
+  XLA re-splits (``XLA_RESPLIT``), and reduced rwkv6's decode step with
+  its heads split and the cache's state split over its rows runs on local
+  shards with ``repro``'s FLOPs;
 * reduced mixtral-8x22b and deepseek-v2-236b train steps with no mesh
   (also with several chunks a layer, and the flat and scatter dispatch)
   run each MoE chunk once forward and once in the backward, and each
@@ -51,8 +57,9 @@ COMPARED = ("qwen3-4b", "rwkv6-1.6b", "mixtral-8x22b", "deepseek-v2-236b",
 # repro's (r, k and the log-decay split, v whole), product for product,
 # but for three a layer that XLA's scan runs with a zero or unused
 # cotangent and autograd skips (the first chunk's state gradient, the last
-# chunk's two state products): 2.43% of repro's count at two chunks a
-# layer, 3.13% with remat off (PERF.md §6, tests/dryrun_compare.py --by-op)
+# chunk's two state products; ``rwkv6_gap``): 2.38% of repro's count at two
+# chunks a layer, 3.07% with remat off (PERF.md §6, tests/dryrun_compare.py
+# --by-op)
 BOUNDS = {arch: (0.98, 1.02) for arch in COMPARED} | {"rwkv6-1.6b": (0.96, 1.02)}
 # port / repro per-device collective bytes at the cut cell, at most
 COLLECTIVE_BOUNDS = {"mixtral-8x22b": 1.15, "deepseek-v2-236b": 1.15,
@@ -81,12 +88,61 @@ FAULT_CASES = {
     "rwkv6-2x2-no-remat": ("rwkv6-1.6b", (2, 2), "", False),
     "deepseek-2x2-router-whole": ("deepseek-v2-236b", (2, 2),
                                   "d_model=512,vocab=1024,n_experts=256", True),
+    # F15: a WKV chunk of 32 of the 64 positions spans two devices' shares;
+    # "model" factors into 2 over its positions and 2 over the head's
+    # channels, as XLA places repro's chunk (rwkv6._AcrossShares)
+    "rwkv6-1x4-span": ("rwkv6-1.6b", (1, 4), "", True),
+    "rwkv6-2x4-span": ("rwkv6-1.6b", (2, 4), "", True),
+    # F13: five heads do not divide "model" (4), so both packages split the
+    # head dim; XLA re-splits one backward product of the local attention
+    "recurrentgemma-2x4-5-heads": ("recurrentgemma-2b", (2, 4), "n_heads=5", True),
 }
+# repro's per-device FLOPs less the port's where XLA's partitioner re-splits
+# the local attention's backward product over the q-chunk's positions with
+# the whole head dim (its "involuntary full rematerialization"), where the
+# port keeps the head dim's split (ROADMAP "Not faults", F13): per q-chunk
+# (2 of 32 positions, one attention layer) f32[4,5,16,64] = f32[4,5,16,16] x
+# f32[4,5,16,64] (655,360) against the port's (20,32,4) x (20,4,64)
+# (327,680): 2 x 327,680.  At full size on 16x16: 32 x (8.59e10 - 2.15e10).
+XLA_RESPLIT = {"recurrentgemma-2x4-5-heads": 655_360}
+# the rwkv6 cells held exactly: (mesh, whose record); ``compared`` is the
+# 2x2 cell of COMPARED
+RWKV6_CELLS = {"2x2": ((2, 2), "compared"), "2x2-no-remat": ((2, 2), "rwkv6-2x2-no-remat"),
+               "1x4-span": ((1, 4), "rwkv6-1x4-span"), "2x4-span": ((2, 4), "rwkv6-2x4-span")}
+
+
+def rwkv6_gap(mesh) -> int:
+    """``repro``'s per-device FLOPs less the port's on reduced rwkv6-1.6b
+    (2 layers, one head of K = V = 64, chunks of L = 32) at batch 8,
+    sequence 64 (2 chunks): XLA's scan runs its body's backward for every
+    chunk alike, so it computes three state products a layer that take a
+    zero or unused cotangent and autograd skips (the first chunk's state
+    gradient, the last chunk's two), 2·B·L·K·V over the devices each;
+    autograd runs the bonus term's backward as two batched products of one
+    lane (2·B·L·K over the devices each, a chunk) where XLA multiplies
+    elementwise.  At 1x4 and 2x4: 3,145,728 - 65,536 and 1,572,864 -
+    32,768."""
+    data, model = mesh
+    layers, chunks, B, L, K = 2, 2, 8 // data, 32, 64
+    dead = 3 * layers * 2 * B * L * K * K // model
+    bonus = 2 * layers * chunks * 2 * B * L * K // model
+    return dead - bonus
+
+
+# F16: reduced rwkv6's decode step with heads of 16 channels on 2x4 (its
+# (mesh, config overrides)): "model" splits the step's heads and the
+# decode cell's caches split the state's rows; the step runs on local
+# shards (layers.placed_like, rwkv6._local_heads), its per-device FLOPs repro's
+# (chip_smoke.py keeps the count: its host has no JAX)
+DECODE_CASE = ((2, 4), "rwkv_head_dim=16")
+DECODE_FLOPS = 208_896
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The CLI cells and the ten comparison processes, started together."""
+    """The CLI cells and every comparison cell, started together: the
+    comparison cells in three processes a package (``start_cells``), so
+    JAX, torch and their setup load once a process."""
     out = tmp_path_factory.mktemp("dryrun") / "res.json"
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1")
     cli = subprocess.Popen(
@@ -99,20 +155,25 @@ def runs(tmp_path_factory):
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "qwen3-4b",
          "--shape", "prefill_32k", "--mesh", "single", "--out", str(pf_out)],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    procs = {case: dryrun_compare.start(["mixtral-8x22b"], "train_4k", mesh, batch=8, seq=64,
-                                        remat=remat, overrides=overrides)
-             for case, (mesh, overrides, remat) in SPLIT_CASES.items()}
-    faults = {case: dryrun_compare.start([arch], "train_4k", mesh, batch=8, seq=64,
-                                         remat=remat, overrides=overrides)
+    cells = {f"compared {arch}": dict(arch=arch, shape="train_4k", mesh=(2, 2))
+             for arch in COMPARED}
+    cells |= {f"split {case}": dict(arch="mixtral-8x22b", shape="train_4k", mesh=mesh,
+                                    remat=remat, overrides=overrides)
+              for case, (mesh, overrides, remat) in SPLIT_CASES.items()}
+    cells |= {f"fault {case}": dict(arch=arch, shape="train_4k", mesh=mesh, remat=remat,
+                                    overrides=overrides)
               for case, (arch, mesh, overrides, remat) in FAULT_CASES.items()}
-    compared = dryrun_compare.compare(COMPARED, "train_4k", (2, 2), batch=8, seq=64)
-    split = {case: dryrun_compare.finish(p)["mixtral-8x22b"] for case, p in procs.items()}
-    faults = {case: dryrun_compare.finish(p)[FAULT_CASES[case][0]]
-              for case, p in faults.items()}
+    cells["decode"] = dict(arch="rwkv6-1.6b", shape="decode_32k", mesh=DECODE_CASE[0],
+                           overrides=DECODE_CASE[1])
+    got = dryrun_compare.finish_cells(dryrun_compare.start_cells(cells))
     stdout, stderr = cli.communicate(timeout=900)
     pf_stdout, pf_stderr = prefill.communicate(timeout=900)
-    return {"cli": (cli.returncode, stdout, stderr, out), "compared": compared,
-            "split": split, "faults": faults, "prefill": (prefill.returncode, pf_stdout, pf_stderr, pf_out)}
+    return {"cli": (cli.returncode, stdout, stderr, out),
+            "compared": {arch: got[f"compared {arch}"] for arch in COMPARED},
+            "split": {case: got[f"split {case}"] for case in SPLIT_CASES},
+            "faults": {case: got[f"fault {case}"] for case in FAULT_CASES},
+            "decode": got["decode"],
+            "prefill": (prefill.returncode, pf_stdout, pf_stderr, pf_out)}
 
 
 # ---------------------------------------------------------------------------
@@ -314,6 +375,35 @@ def test_fault_case_flops_against_repro(runs, case):
     assert lo <= port / repro <= hi, (port, repro)
     port, repro = got["port"]["collective_bytes"], got["repro"]["collective_bytes"]
     assert 0 < port <= 1.15 * repro, (port, repro)
+
+
+@pytest.mark.parametrize("cell", sorted(RWKV6_CELLS))
+def test_rwkv6_gap_is_xlas_dead_scan_products(runs, cell):
+    """rwkv6's WKV chunk has ``repro``'s products, shape for shape: inside
+    a share of the sequence (2x2, F10) and across shares (1x4, 2x4, F15);
+    the port's per-device FLOPs are ``repro``'s less exactly
+    ``rwkv6_gap``."""
+    mesh, key = RWKV6_CELLS[cell]
+    got = runs["compared"]["rwkv6-1.6b"] if key == "compared" else runs["faults"][key]
+    assert got["repro"]["flops"] - got["port"]["flops"] == rwkv6_gap(mesh), got
+
+
+@pytest.mark.parametrize("case", sorted(XLA_RESPLIT))
+def test_recurrentgemma_gap_is_xlas_resplit_product(runs, case):
+    """F13 reduced: the whole gap is the one product XLA re-splits."""
+    got = runs["faults"][case]
+    assert got["repro"]["flops"] - got["port"]["flops"] == XLA_RESPLIT[case], got
+
+
+def test_rwkv6_decode_step_on_local_shards(runs):
+    """F16: where "model" splits the decode step's heads and the cache
+    splits the state's rows, the state is moved onto the heads' split and
+    back, so each layer's step runs on the local shards (which torch 2.11
+    needs: its ``DTensor`` refuses the products' fold of a split batch and
+    a split head dim); per-device FLOPs equal ``repro``'s."""
+    got = runs["decode"]
+    assert got["port"]["local_heads"] == {"_wkv_step": 2}, got["port"]
+    assert got["port"]["flops"] == got["repro"]["flops"] == DECODE_FLOPS, got
 
 
 def count_chunk_calls(arch: str, seq: int = 64, batch: int = 2, **overrides) -> dict:
