@@ -367,22 +367,26 @@ from repro_torch.training.data import SyntheticData  # noqa: E402
 from repro_torch.training.optimizer import _global_norm, adamw_update  # noqa: E402
 
 
-def _reference_module():
-    """``tests/repro_fullsize_record.py``: ``repro``'s full-size results
-    (``tests/data/repro_fullsize.json``, made on a CPU with JAX), the one
-    list of the full-size paths and the digest each result is held to.  It
-    imports neither JAX nor ``repro`` at module level; loaded by path."""
+def _tests_module(name: str):
+    """``tests/{name}.py``, loaded by path; it imports neither JAX nor
+    ``repro`` at module level."""
     import importlib.util
 
-    path = Path(__file__).resolve().parent / "tests" / "repro_fullsize_record.py"
-    spec = importlib.util.spec_from_file_location("fullsize_reference", path)
+    path = Path(__file__).resolve().parent / "tests" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     sys.modules[spec.name] = mod
     spec.loader.exec_module(mod)
     return mod
 
 
-reference = _reference_module()
+# repro's full-size results (tests/data/repro_fullsize.json, made on a CPU
+# with JAX), the one list of the full-size paths and the digest each result
+# is held to
+reference = _tests_module("repro_fullsize_record")
+# repro's dry-run counts (tests/data/repro_dryrun_fullsize.json), the
+# reduced cases of phase 17 (c) and what each is held to
+dryrun_record = _tests_module("repro_dryrun_record")
 _RECORD = {}
 
 
@@ -3870,8 +3874,10 @@ def check_mesh(dev_cuda, phase16: dict) -> dict:
     again against the reference; (c) the dry run of (a)'s step
     (``op_analysis`` on meta, a subprocess started after (a)'s timed
     steps) against phase 16's model FLOPs and peak memory, and the dry run
-    of each of ``SPLIT_CASES`` on a fake group of its mesh's size (a
-    subprocess each, started with it) against ``repro``'s FLOPs."""
+    of each of ``SPLIT_CASES`` and ``DECODE_CASE`` on a fake group of its
+    mesh's size (a subprocess each, started with it) against ``repro``'s
+    FLOPs, and of ``tests/repro_dryrun_record.py``'s reduced cases (F17,
+    F18) against its record, each held as ``differs`` holds it."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import DTensor
@@ -3941,6 +3947,10 @@ def check_mesh(dev_cuda, phase16: dict) -> dict:
         probes["rwkv6 decode"] = subprocess.Popen(
             [sys.executable, "-c", DECODE_PROBE.format(shape=shape, overrides=overrides)],
             cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for case, cell in dryrun_record.REDUCED.items():
+            argv, env = dryrun_record.trace_command("port", case, cell)
+            probes[case] = subprocess.Popen(argv, env=env, cwd=root, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True)
 
         cut = dataclasses.replace(cfg, n_layers=MESH_CUT_LAYERS)
         data = SyntheticData.for_model(cut, B, S, seed=0)
@@ -4033,6 +4043,18 @@ def check_mesh(dev_cuda, phase16: dict) -> dict:
     if got["flops"] != want or got["local_steps"] != local:
         fail(f"mesh dry run rwkv6 decode: {got} against repro's {want} FLOPs, {local} "
              "steps on local shards")
+    record = dryrun_record.load()
+    for case in dryrun_record.REDUCED:
+        got, want = out[case][case], record[case]
+        gap = dryrun_record.GAPS.get(case, 0)
+        print(f"  mesh dry run {case} on a fake group (torch {torch.__version__}): "
+              f"per-device FLOPs {got['flops']:.0f} against repro's {want['flops']:.0f} less "
+              f"its accounted gap {gap} ({got['flops'] / want['flops'] - 1:+.4%}), collective "
+              f"bytes {got['collective_bytes']:.0f} against {want['collective_bytes']:.0f}",
+              flush=True)
+        why = dryrun_record.differs(case, got, want)
+        if why:
+            fail(f"mesh dry run {case}: {why}")
     return {"ms": ms, "flops": flops, "dry_mib": dry_mib}
 
 

@@ -35,6 +35,8 @@ __all__ = [
     "attention",
     "mlp_apply",
     "use_sharding_mesh",
+    "decoding",
+    "in_decode",
     "sharding_mesh",
     "is_dtensor",
     "heads_spec",
@@ -54,6 +56,10 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # without a mesh, where every constraint is the identity.
 _MESH_CTX: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh",
                                                            default=None)
+# Whether the ops run a decode step (``Model.decode_step``): its tokens meet
+# the weights as XLA places ``repro``'s step (``local_product``).
+_DECODE_CTX: contextvars.ContextVar = contextvars.ContextVar("repro_torch_decode",
+                                                             default=False)
 
 
 @contextlib.contextmanager
@@ -68,6 +74,21 @@ def use_sharding_mesh(mesh):
 def sharding_mesh():
     """The mesh ``use_sharding_mesh`` set, or None."""
     return _MESH_CTX.get()
+
+
+@contextlib.contextmanager
+def decoding():
+    """The ops inside run a decode step."""
+    tok = _DECODE_CTX.set(True)
+    try:
+        yield
+    finally:
+        _DECODE_CTX.reset(tok)
+
+
+def in_decode() -> bool:
+    """Whether the ops run inside ``decoding()``."""
+    return _DECODE_CTX.get()
 
 
 def is_dtensor(t) -> bool:
@@ -209,6 +230,23 @@ def local_product(x, w, e: int | None = None, reduce_dims=()):
       whole first where it is partial, strided, or split on a leading dim
       after the first where w splits ``b``.
 
+    In a decode step (``decoding()``) x is placed as XLA places
+    ``repro``'s step.  One token (B = 1; with ``e``, one slot an expert)
+    meets w where w lies: w never moves, x does.
+
+    * w split on E: x split on E alike;
+    * w split on ``a``: x split on ``a`` alike (a slice where x is whole),
+      the output a partial sum, all-reduced at once (the next product
+      takes its input whole, or a slice of it);
+    * w split on ``b`` or whole: x whole there (gathered where it is
+      split), the output split as w.
+
+    A step of B > 1 tokens is placed as above, but that x split on ``a``
+    where w splits ``b`` is gathered (not w moved) where x's shard is
+    smaller than w's; and where its batch is split on another mesh dim,
+    a w whole over a mesh dim that x leaves whole splits its columns
+    there (a slice).
+
     ``DTensor``'s own ``matmul`` or ``einsum`` folds the leading dims of x
     into one before its ``mm``/``bmm``, a view torch 2.11 refuses when a
     leading dim after the first is split: the sequence-parallel residual
@@ -232,9 +270,30 @@ def local_product(x, w, e: int | None = None, reduce_dims=()):
             return True
         return type(p) is Shard and not (0 < p.dim < a and p.dim != e and pw == Shard(wb))
 
-    xp = [p if kept(p, pw) else Replicate() for p, pw in zip(x.placements, w.placements)]
+    decode = in_decode()
+    token = decode and math.prod(n for d, n in enumerate(x.shape[:-1]) if d != e) == 1
+    step = decode and e is None
+    batch = step and any(p.is_shard(0) for p in x.placements)
+    x_local, w_local = x.to_local().numel(), w.to_local().numel()
+
+    def placed(p, pw):
+        if token:                      # where w lies
+            if e is not None and pw == Shard(0):
+                return Shard(e)
+            return Shard(a) if pw == Shard(wa) else Replicate()
+        if step and p == Shard(a) and pw == Shard(wb) and x_local < w_local:
+            return Replicate()         # the step's few tokens gathered, w not moved
+        return p if kept(p, pw) else Replicate()
+
+    xp = [placed(p, pw) for p, pw in zip(x.placements, w.placements)]
+    # a step whose batch is split elsewhere splits the columns of a w whole
+    # over a mesh dim that x leaves whole too (a slice): no device repeats
+    # another's work there
+    wq = [Shard(wb) if batch and px.is_replicate() and pw.is_replicate() and mesh.size(i) > 1
+          and w.shape[wb] % mesh.size(i) == 0 else pw
+          for i, (px, pw) in enumerate(zip(xp, w.placements))]
     rules = []    # per mesh dim: (w's placement, output's, x's gradient's, w's gradient's)
-    for px, pw in zip(xp, w.placements):
+    for px, pw in zip(xp, wq):
         if px.is_shard() and px.dim == e:
             rules.append((Shard(0), px, px, Shard(0)))
         elif px.is_shard() and px.dim != a:
@@ -251,7 +310,7 @@ def local_product(x, w, e: int | None = None, reduce_dims=()):
     shape = (*x.shape[:-1], w.shape[-1])
     y = DTensor.from_local(y, mesh, out, run_check=False, shape=torch.Size(shape),
                            stride=contiguous_stride(shape))
-    return reduce_partial(y, *reduce_dims, a)
+    return reduce_partial(y) if token else reduce_partial(y, *reduce_dims, a)
 
 
 def gather_operand(x, *ws):
@@ -280,7 +339,50 @@ def _redistributed(t, placements):
     that gradient at half the bytes."""
     if list(t.placements) == list(placements):
         return t
+    turn = _transposition(t, placements)
+    if turn is not None:
+        return _transposed(t, placements, *turn)
     return t.redistribute(t.device_mesh, placements)
+
+
+def _transposition(t, placements):
+    """``(i, j)`` where ``placements`` move ``t``'s split of a dim from
+    mesh dim ``j`` to mesh dim ``i`` of the same size, over which ``t`` is
+    whole, and leave every other mesh dim as it is and splitting that dim
+    nowhere; None elsewhere, and where autograd records ``t``."""
+    if t.requires_grad and torch.is_grad_enabled():
+        return None
+    mesh = t.device_mesh
+    old, new = list(t.placements), list(placements)
+    moved = [m for m in range(len(old)) if old[m] != new[m]]
+    if len(moved) != 2:
+        return None
+    for i, j in (moved, moved[::-1]):
+        k = old[j]
+        # every block alike: an uneven split's blocks differ in size
+        if (old[i].is_replicate() and new[j].is_replicate() and k.is_shard()
+                and new[i] == k and mesh.size(i) == mesh.size(j)
+                and t.shape[k.dim] % mesh.size(j) == 0
+                and not any(p == k for m, p in enumerate(old) if m != j)):
+            return i, j
+    return None
+
+
+def _transposed(t, placements, i: int, j: int):
+    """``t`` moved by ``_transposition``'s ``(i, j)``: a device's new block
+    is the one its coordinate on ``i`` names, which the member of its
+    group along ``j`` whose coordinate there is the same holds; that member
+    broadcasts it to the group (XLA's collective-permute of ``repro``'s
+    step moves the block to one device; ``DTensor``'s redistribution
+    gathers every block over ``j``)."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor
+
+    mesh = t.device_mesh
+    # the root's rank in the group along j is its coordinate there
+    local = funcol.broadcast(t.to_local().contiguous(), mesh.get_coordinate()[i], (mesh, j))
+    return DTensor.from_local(local, mesh, placements, run_check=False, shape=t.shape,
+                              stride=t.stride())
 
 
 def channels_split(t) -> bool:
@@ -299,16 +401,60 @@ def whole_channels(t):
 
 
 def placed_like(t, like):
-    """``t`` placed as ``like``, a ``DTensor`` of as many dims that shares
-    its leading dims: a decode step's token, state or carry brought to one
-    placement with the operand it meets (a decode cell's cache may split a
-    carry transposed to the step's token: the hidden dim over the data
-    axes, the batch over "model"), so the step's ops meet no operands
-    placed apart, whose redistribution each torch picks its own way.
-    ``t`` itself off a mesh."""
+    """``t`` placed as ``like`` (a ``DTensor`` of as many dims, or of
+    placements that name only dims ``t`` has); ``t`` itself off a mesh."""
     if not (is_dtensor(t) and is_dtensor(like)):
         return t
     return _redistributed(t, like.placements)
+
+
+def along(w, t):
+    """A per-channel weight ``w`` (..., c) placed along ``t`` (..., c):
+    split over its last dim on each mesh dim where ``t`` splits its last
+    dim, whole elsewhere; ``w`` itself off a mesh or where it lies so
+    already (as in every full-sequence step)."""
+    if not (is_dtensor(w) and is_dtensor(t)):
+        return w
+    from torch.distributed.tensor import Replicate, Shard
+
+    return _redistributed(w, [Shard(w.ndim - 1) if p.is_shard(t.ndim - 1) else Replicate()
+                              for p in t.placements])
+
+
+def meeting(x, state) -> list | None:
+    """The one placement at which a decode step's activation ``x`` and the
+    state it meets (a token-shift carry, an RNN state or conv window, a
+    WKV state: ``state`` shares ``x``'s leading dims) are placed alike, so
+    no op of the step meets operands placed apart, whose redistribution
+    each torch picks its own way.  Mesh dim by mesh dim, as XLA places
+    ``repro``'s step: ``x``'s split where it splits its batch (the state
+    moves to it) or a dim that the state splits nowhere (the heads of the
+    step against a WKV state split over its rows and columns); else the
+    state's split, where it is on a dim of ``x`` that ``x`` does not keep
+    split elsewhere (a whole token takes it as a slice); else whole.  A
+    decode cell's cache may split a state transposed to the step's token
+    (the hidden dim over the data axes, the batch over "model"), and a
+    batch-1 token comes whole but for its hidden dim.  None off a mesh."""
+    if not (is_dtensor(x) and is_dtensor(state)):
+        return None
+    from torch.distributed.tensor import Replicate
+
+    by_state = {p.dim for p in state.placements if p.is_shard()}
+    out = [px if px.is_shard() and (px.dim == 0 or px.dim not in by_state) else None
+           for px in x.placements]
+    kept = {p.dim for p in out if p is not None}
+    return [p if p is not None else ps if ps.is_shard() and ps.dim < x.ndim
+            and ps.dim not in kept else Replicate()
+            for p, ps in zip(out, state.placements)]
+
+
+def met(x, state):
+    """``(x, state)`` both placed at ``meeting(x, state)``; as they are off
+    a mesh."""
+    pl = meeting(x, state)
+    if pl is None:
+        return x, state
+    return _redistributed(x, pl), _redistributed(state, pl)
 
 
 def pad_seq(t, n: int, value=0):
@@ -434,10 +580,28 @@ def _attend_block(q, k, v, q_pos, k_pos, causal, window, scale):
     if window is not None:
         valid = valid & (q_pos[:, None] - k_pos[None, :] < window)
     scores = torch.where(valid[None, None], scores, -1e30)
-    probs = torch.softmax(scores, dim=-1)
+    probs = _softmax_keys(scores)
     any_valid = valid.any(dim=-1)                        # (Sq,) or (1,)
     probs = probs * any_valid[None, None, :, None]
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+
+
+def _softmax_keys(scores):
+    """``torch.softmax(scores, -1)``; on a ``DTensor`` split over the keys
+    (a decode step's cache split over its positions) from each device's
+    own keys, with the row max and sum made whole (two all-reduces of one
+    number a row), as XLA runs ``repro``'s softmax there: ``DTensor``'s
+    own softmax gathers the scores."""
+    if not (is_dtensor(scores) and any(p.is_shard(scores.ndim - 1) for p in scores.placements)):
+        return torch.softmax(scores, dim=-1)
+    from torch.distributed.tensor import Replicate
+
+    def whole(t):
+        return t.redistribute(t.device_mesh, [Replicate() if p.is_partial() else p
+                                              for p in t.placements])
+
+    e = torch.exp(scores - whole(scores.amax(-1, keepdim=True)))
+    return e / whole(e.sum(-1, keepdim=True))
 
 
 def attention(
@@ -460,6 +624,7 @@ def attention(
     G = Hq // k.shape[2]
     scale = scale if scale is not None else D ** -0.5
     if G > 1:  # each KV head repeats G times in a row, as jnp.repeat
+        k, v = _before_repeat(k, Hq), _before_repeat(v, Hq)
         k = k.repeat_interleave(G, dim=2)
         v = v.repeat_interleave(G, dim=2)
     q, k, v = shard_heads(q), shard_heads(k), shard_heads(v)
@@ -472,6 +637,21 @@ def attention(
         return DTensor.from_local(out, q.device_mesh, q.placements, run_check=False,
                                   shape=torch.Size(shape), stride=contiguous_stride(shape))
     return _attend(q, k, v, *args)
+
+
+def _before_repeat(t, Hq: int):
+    """A KV tensor (B, S, Hkv, D) placed, before its heads repeat to
+    ``Hq``, as ``shard_heads`` places the repeated tensor where that
+    placement splits no heads (so it holds for the KV heads too): a decode
+    step's cache moves once, not ``Hq / Hkv`` times over, as XLA moves
+    ``repro``'s.  ``t`` itself elsewhere."""
+    mesh = _MESH_CTX.get()
+    if mesh is None or not is_dtensor(t):
+        return t
+    from repro_torch.distributed.sharding import NamedSharding
+
+    spec = heads_spec((*t.shape[:2], Hq, t.shape[3]), mesh)
+    return t if spec[2] is not None else _redistributed(t, NamedSharding(mesh, spec).placements)
 
 
 def contiguous_stride(shape) -> tuple:

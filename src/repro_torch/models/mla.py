@@ -25,6 +25,7 @@ from repro_torch.models.layers import (
     linear,
     new_param,
     norm_apply,
+    placed_like,
     rope_apply,
     split_heads,
 )
@@ -114,4 +115,8 @@ def mla_decode_absorbed(p, x, pos: int, cache_ckv, cache_krope, cfg):
     ctx = torch.einsum("bht,btr->bhr", probs, cache_ckv)      # latent context
     wv_b = p.wv_b.to(x.dtype).reshape(R, H, dv)
     out = torch.einsum("bhr,rhd->bhd", ctx, wv_b).reshape(B, 1, H * dv)
-    return linear(out, p.wo), cache_ckv, cache_krope
+    # back on the token's placement: a decode cell's cache may split its
+    # batch over "model" and its positions over the data axes, and the
+    # products against it leave the output so (the batch over "model"),
+    # where XLA takes repro's output projection on the token's split
+    return linear(placed_like(out, x), p.wo), cache_ckv, cache_krope

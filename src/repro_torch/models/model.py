@@ -41,6 +41,7 @@ from repro_torch.kernels.dispatch import resolve_backend
 from repro_torch.models.layers import (
     DTYPES,
     Norm,
+    decoding,
     dense_init_,
     is_dtensor,
     linear,
@@ -52,6 +53,23 @@ from repro_torch.models.layers import (
 from repro_torch.models.transformer import Block, apply_stack, init_cache, layer_specs
 
 __all__ = ["Model", "build_model"]
+
+
+def _next_token(x, labels, head, chunk: int):
+    """``(x[:, :-1], labels[:, 1:])``, the loss's next-token pairs.  Where
+    a mesh splits x's sequence on a dim where ``head`` keeps its vocab
+    whole and one chunk takes the whole sequence, x keeps its positions
+    and its split and the labels end on -1 instead: XLA keeps ``repro``'s
+    slice split there, padded to divide the mesh, so each device's logits
+    cover its share of the positions; ``DTensor``'s slice of a split dim
+    would gather it, and every device would compute every position's
+    logits (a 1xM mesh, whose data axis of 1 leaves the head's vocab
+    whole over "model" at d_model >= 512)."""
+    if (is_dtensor(x) and is_dtensor(head) and chunk >= x.shape[1] - 1
+            and any(p.is_shard(1) and not q.is_shard(head.ndim - 1)
+                    for p, q in zip(x.placements, head.placements))):
+        return x, torch.cat([labels[:, 1:], torch.full_like(labels[:, :1], -1)], dim=1)
+    return x[:, :-1], labels[:, 1:]
 
 
 class Frontend(nn.Module):
@@ -179,7 +197,7 @@ class Model(nn.Module):
             x = x[:, n_prefix:]
         labels = torch.as_tensor(batch["labels"], device=self.device)
         if cfg.family != "encoder":            # next-token shift
-            x, labels = x[:, :-1], labels[:, 1:]
+            x, labels = _next_token(x, labels, self.lm_head, cfg.logits_chunk)
 
         St = x.shape[1]
         chunk = min(cfg.logits_chunk, St)
@@ -248,9 +266,10 @@ class Model(nn.Module):
         token = torch.as_tensor(token, device=self.device)
         x = F.embedding(token, self.embed.to(DTYPES[cfg.act_dtype]))
         positions = torch.full((1,), pos, dtype=torch.int32, device=self.device)
-        x, _ = apply_stack(self.layers, x, cfg, positions, "decode", caches, pos=pos)
-        x = norm_apply(self.final_norm, x, cfg.norm)
-        return caches, self._logits(x)[:, 0]
+        with decoding():
+            x, _ = apply_stack(self.layers, x, cfg, positions, "decode", caches, pos=pos)
+            x = norm_apply(self.final_norm, x, cfg.norm)
+            return caches, self._logits(x)[:, 0]
 
     # ---------------------------------------------------------- input specs
     def input_specs(self, batch_size: int, seq_len: int, mode: str = "train") -> dict:

@@ -112,11 +112,25 @@ def _router(p, xc):
     takes the device's share of the positions, as XLA splits ``repro``'s
     (``_SeqSplit``'s layout), and the logits are gathered whole."""
     if getattr(p, "route_x", None) is None:
-        logits = linear(xc, p.router).float()
+        logits = linear(_forward_features(xc), p.router).float()
     else:
-        logits = _whole_logits(linear(p.route_x, p.route_w).float(), xc.device_mesh)
+        logits = _whole_logits(linear(_forward_features(p.route_x), p.route_w).float(),
+                               xc.device_mesh)
     probs = torch.softmax(logits, dim=-1)
     return logits, probs
+
+
+def _forward_features(xc):
+    """A split chunk (``_SeqSplit``) outside autograd (a prefill) with its
+    features split over "model", where it is whole: XLA splits the
+    forward-only step's router and combine so, over the factor of "model"
+    that the chunk's positions leave free (a train step keeps them whole,
+    as its backward's products take them).  ``xc`` itself elsewhere."""
+    if not _is_split(xc) or torch.is_grad_enabled() or not xc.placements[-2].is_replicate():
+        return xc
+    from torch.distributed.tensor import Shard
+
+    return _redistributed(xc, (*xc.placements[:-2], Shard(xc.ndim - 1), xc.placements[-1]))
 
 
 def _whole_logits(t, mesh):
@@ -268,6 +282,8 @@ def _dispatch_combine(p, routes, gate_vals, C: int, xc, spec: str):
         tok = _token_placements(xc)
         xe = _SplitDispatch.apply(dispatch.to(xc.dtype), xc, tok)
         ye = _experts_ffn(p, xe, xc.dtype)
+        if not torch.is_grad_enabled():
+            return _forward_combine(combine.to(xc.dtype), ye, tok)
         cm, ye = _SaveInputs.apply(combine.to(xc.dtype), ye)
         return _SplitCombine.apply(cm, ye, tok, cm.grad_fn)
     xe = torch.einsum(spec, dispatch.to(xc.dtype), xc)
@@ -514,6 +530,22 @@ class _SplitDispatch(torch.autograd.Function):
         return None, DTensor.from_local(dx, mesh, (*tok[:-2], Shard(2), tok[-1]),
                                         run_check=False, shape=shape,
                                         stride=contiguous_stride(shape)), None
+
+
+def _forward_combine(cm, ye, tok):
+    """A split chunk's combine outside autograd (a prefill):
+    ``einsum("bsec,becd->bsd", combine, ye)`` on the device's share of the
+    tokens with the features split over "model" (``_forward_features``),
+    the output so too."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    feats = (*tok[:-2], Shard(3), Replicate())
+    y = torch.einsum("bsec,becd->bsd", _redistributed(cm, tok).to_local(),
+                     _redistributed(ye, feats).to_local())
+    shape = (*cm.shape[:2], ye.shape[-1])
+    return DTensor.from_local(y, cm.device_mesh, (*tok[:-2], Shard(2), tok[-1]),
+                              run_check=False, shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
 
 
 class _SplitCombine(torch.autograd.Function):

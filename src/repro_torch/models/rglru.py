@@ -22,7 +22,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.layers import dense_init_, gather_operand, linear, new_param
+from repro_torch.models.layers import (
+    along,
+    dense_init_,
+    gather_operand,
+    linear,
+    met,
+    new_param,
+    placed_like,
+)
 
 __all__ = ["RGLRU", "rglru_apply", "rglru_decode_step"]
 
@@ -62,10 +70,12 @@ class RGLRU(nn.Module):
 
 def _gates(p, u):
     u = gather_operand(u, p.w_r, p.w_i)
-    r = torch.sigmoid(linear(u, p.w_r).float() + p.b_r.float())
-    i = torch.sigmoid(linear(u, p.w_i).float() + p.b_i.float())
-    a = torch.exp(-_C * F.softplus(p.lam) * r)
-    b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * i * u.float()
+    r = linear(u, p.w_r).float()
+    r = torch.sigmoid(r + along(p.b_r, r).float())
+    i = linear(u, p.w_i).float()
+    i = torch.sigmoid(i + along(p.b_i, i).float())
+    a = torch.exp(-_C * F.softplus(along(p.lam, r)) * r)
+    b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * i * placed_like(u, i).float()
     return a, b
 
 
@@ -76,8 +86,9 @@ def _conv(p, u, state=None):
            else state.to(u.dtype))
     xp = torch.cat([pad, u], dim=1)
     S = u.shape[1]
-    out = sum(xp[:, i:i + S] * p.conv_w[i].to(u.dtype) for i in range(cw))
-    return out + p.conv_b.to(u.dtype), xp[:, -(cw - 1):]
+    conv_w = along(p.conv_w, u).to(u.dtype)
+    out = sum(xp[:, i:i + S] * conv_w[i] for i in range(cw))
+    return out + along(p.conv_b, u).to(u.dtype), xp[:, -(cw - 1):]
 
 
 def _linear_scan(a, b):
@@ -108,11 +119,18 @@ def rglru_apply(p, x, *, conv_state=None, h_state=None):
 
 
 def rglru_decode_step(p, x, h_state, conv_state):
-    """One-token step. x (B,1,d); h (B,dr); conv (B,cw-1,dr)."""
+    """One-token step. x (B,1,d); h (B,dr); conv (B,cw-1,dr).  On a mesh
+    the step's activations meet the cache's states at one placement
+    (``layers.meeting``: the branch ``u`` and the conv window, the decay
+    ``a`` and the state ``h``), and what each elementwise op takes is
+    placed as its other operand, so no op meets operands placed apart;
+    the new states go back to the cache's placements."""
     gate = F.gelu(linear(x, p.w_gate), approximate="tanh")
-    u = linear(x, p.w_x)
-    u, conv_state = _conv(p, u, conv_state)
+    u, conv = met(linear(x, p.w_x), conv_state)
+    u, new_conv = _conv(p, u, conv)
     a, b = _gates(p, u)                        # (B,1,dr)
-    h = a[:, 0] * h_state.float() + b[:, 0]
-    y = linear(h[:, None].to(x.dtype) * gate, p.w_out)
-    return y, h, conv_state
+    a, h = met(a[:, 0], h_state)
+    h = a * h.float() + placed_like(b[:, 0], a)
+    y = h[:, None].to(x.dtype)
+    y = linear(y * placed_like(gate, y), p.w_out)
+    return y, placed_like(h, h_state), placed_like(new_conv, conv_state)

@@ -25,9 +25,11 @@ from repro_torch.models.layers import (
     contiguous_stride,
     dense_init_,
     gather_operand,
+    in_decode,
     is_dtensor,
     linear,
     channels_split,
+    met,
     new_param,
     pad_seq,
     placed_like,
@@ -105,10 +107,13 @@ def _project(p, x, xx, seq=None):
     gathers ``x`` once), the lerps run whole and every projection splits
     its output; the decay LoRA's down-projection takes the device's share
     of the positions where ``seq`` (the placements ``x`` came with) split
-    them, as XLA runs ``repro``'s."""
+    them, as XLA runs ``repro``'s.  A decode step's tokens take ``wA`` as it
+    lies."""
     mu = _whole(p.mu).to(x.dtype)
     m = [x + (xx - x) * mu[i] for i in range(5)]
-    lora = linear(torch.tanh(linear(_share_of(m[0], seq), _whole(p.wA))), p.wB)
+    # a decode step's tokens meet wA where it lies (``layers.local_product``)
+    wA = p.wA if in_decode() else _whole(p.wA)
+    lora = linear(torch.tanh(linear(_share_of(m[0], seq), wA)), p.wB)
     lw = -torch.exp(p.w0.float() + lora.float())
     lw = torch.clamp(lw, -8.0, -1e-6)                     # log w_t in (-8, 0)
     k = linear(m[1], p.Wk)
@@ -247,21 +252,29 @@ def _local_heads(fn, r, k, v, w, u, state):
     product is its own), the outputs placed as ``r``, ``u`` split as its
     heads (its gradient summed over the batch's split): torch 2.11's
     ``DTensor`` refuses the ``einsum``s' fold of a batch dim and a head
-    dim that are both split.  None elsewhere."""
-    if not (is_dtensor(r) and all(is_dtensor(t) and t.placements == r.placements
-                                  for t in (k, v, w, state))
-            and all(p.is_replicate() or p.is_shard(0) or p.is_shard(1) for p in r.placements)):
-        return None
+    dim that are both split.  A decode step (r (B,H,K)) may also split the
+    channels K, the state's rows, where v comes whole: ``out`` is then a
+    partial sum there, as XLA leaves ``repro``'s step.  None elsewhere."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+    step = r.ndim == 3
+    if not (is_dtensor(r) and all(is_dtensor(t) and t.placements == r.placements
+                                  for t in (k, w, state))
+            and all(p.is_replicate() or p.is_shard(0) or p.is_shard(1)
+                    or (step and p.is_shard(2)) for p in r.placements)
+            and is_dtensor(v) and list(v.placements) == [
+                Replicate() if p.is_shard(2) else p for p in r.placements]):
+        return None
     mesh = r.device_mesh
-    u = _redistributed(u, [Shard(0) if p.is_shard(1) else Replicate() for p in r.placements])
+    u = _redistributed(u, [Shard(0) if p.is_shard(1) else Shard(1) if p.is_shard(2)
+                           else Replicate() for p in r.placements])
     u = u.to_local(grad_placements=[Partial() if p.is_shard(0) else q
                                     for p, q in zip(r.placements, u.placements)])
     out, new = fn(*(t.to_local() for t in (r, k, v, w)), u, state.to_local())
-    return tuple(DTensor.from_local(t, mesh, r.placements, run_check=False, shape=shape,
+    out_pl = [Partial() if p.is_shard(2) else p for p in r.placements]
+    return tuple(DTensor.from_local(t, mesh, pl, run_check=False, shape=shape,
                                     stride=contiguous_stride(shape))
-                 for t, shape in ((out, v.shape), (new, state.shape)))
+                 for t, pl, shape in ((out, out_pl, v.shape), (new, r.placements, state.shape)))
 
 
 def _wkv_step(r, k, v, w, u, state):
@@ -497,25 +510,36 @@ def rwkv_time_mix(p, x, H, *, shift_carry=None, state=None):
 
 
 def rwkv_time_mix_step(p, x, H, shift_carry, state):
-    """Exact one-token recurrence. x (B,1,d); state (B,H,K,V) float32."""
+    """Exact one-token recurrence. x (B,1,d); state (B,H,K,V) float32.  On
+    a mesh the token and the cache's token-shift carry meet at one
+    placement (``layers.meeting``), and so do r, k and the decay with the
+    cache's state: the state moves onto the step's head split (an
+    all-to-all), its rows keep a split that the token can take as a
+    slice, and the step runs on local shards; the new carry and state go
+    back to the cache's placements."""
     B, _, d = x.shape
     K = d // H
-    # the token placed as the cache's token-shift carry (the hidden dim
-    # over the data axes, the batch over "model"), so the mixes meet no
-    # transposed operand, whose redistribution each torch picks its own way
-    x = placed_like(x, shift_carry[:, None])
-    lw, k, v, r, g = _project(p, x, shift_carry[:, None])
+    x, carry = met(x, shift_carry[:, None])
+    lw, k, v, r, g = _project(p, x, carry)
     w = torch.exp(lw[:, 0].reshape(B, H, K))
     kh = k[:, 0].reshape(B, H, K).float()
     vh = v[:, 0].reshape(B, H, K).float()
-    rh = r[:, 0].reshape(B, H, K).float()
-    # the cache's state, split over its rows, moved onto the step's head
-    # split (an all-to-all) and the new state moved back, as XLA places
-    # repro's decode step: the step runs on local shards
-    args = (rh, kh, vh, w, p.u, placed_like(state, rh))
+    rh, s = met(r[:, 0].reshape(B, H, K).float(), state)
+    args = (rh, placed_like(kh, rh), _rows_whole(vh, rh), placed_like(w, rh), p.u, s)
     out, new_state = _local_heads(_wkv_step, *args) or _wkv_step(*args)
-    y = _group_norm(out.reshape(B, 1, H, K), p.gn_scale).to(x.dtype) * F.silu(g)
-    return linear(y, p.Wo), x[:, -1], placed_like(new_state, state)
+    y = _group_norm(_summed(out).reshape(B, 1, H, K), p.gn_scale).to(x.dtype) * F.silu(g)
+    return (linear(y, p.Wo), placed_like(x[:, -1], shift_carry),
+            placed_like(new_state, state))
+
+
+def _rows_whole(v, r):
+    """``v`` (B,H,V) placed as ``r`` (B,H,K) but whole where ``r`` splits
+    its channels (the state's rows: v spans the state's columns)."""
+    if not (is_dtensor(v) and is_dtensor(r)):
+        return v
+    from torch.distributed.tensor import Replicate
+
+    return _redistributed(v, [Replicate() if q.is_shard(2) else q for q in r.placements])
 
 
 def rwkv_channel_mix(p, x, *, shift_carry=None):
@@ -533,4 +557,8 @@ def rwkv_channel_mix(p, x, *, shift_carry=None):
 
 
 def rwkv_channel_mix_step(p, x, shift_carry):
-    return rwkv_channel_mix(p, placed_like(x, shift_carry[:, None]), shift_carry=shift_carry)
+    """One token; the token and the cache's carry meet at one placement
+    (``layers.meeting``) and the new carry goes back to the cache's."""
+    x, carry = met(x, shift_carry[:, None])
+    y, last = rwkv_channel_mix(p, x, shift_carry=carry[:, 0])
+    return y, placed_like(last, shift_carry)

@@ -29,12 +29,14 @@ from repro_torch.models.layers import (
     MLP,
     Norm,
     _head_rmsnorm,
+    _redistributed,
     attention,
     cache_write,
     channels_split,
     constrain,
     dense_init_,
     gather_operand,
+    heads_spec,
     is_dtensor,
     linear,
     mlp_apply,
@@ -197,14 +199,34 @@ def _attn_qkv(p, x, positions, cfg):
     Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     x = gather_operand(x, p.wq, p.wk, p.wv)
     q = split_heads(linear(x, p.wq), Hq, Dh)
-    k = split_heads(linear(x, p.wk), Hkv, Dh)
-    v = split_heads(linear(x, p.wv), Hkv, Dh)
+    k = split_heads(linear(x, _cols_as_heads(p.wk, x, Hkv, Dh)), Hkv, Dh)
+    v = split_heads(linear(x, _cols_as_heads(p.wv, x, Hkv, Dh)), Hkv, Dh)
     if cfg.qk_norm:
         q = _head_rmsnorm(q, p.q_norm)
         k = _head_rmsnorm(k, p.k_norm)
     q = rope_apply(q, positions, cfg.rope_theta)
     k = rope_apply(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _cols_as_heads(w, x, H: int, D: int):
+    """A projection ``w`` (d, H*D) for one token (a batch-1 decode step):
+    on each mesh dim where ``w`` is whole and the projected heads (1, 1,
+    H, D) split as a block of its columns (whole heads, or one head's D),
+    its columns split there (a slice), so the token's product splits its
+    output as the heads then split, as XLA splits ``repro``'s; ``w``
+    elsewhere."""
+    if not (is_dtensor(w) and is_dtensor(x)) or math.prod(x.shape[:-1]) != 1:
+        return w
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.distributed.sharding import NamedSharding
+
+    mesh = w.device_mesh
+    heads = NamedSharding(mesh, heads_spec((1, 1, H, D), mesh)).placements
+    return _redistributed(w, [Shard(1) if pw.is_replicate() and (
+        ph == Shard(2) or (ph == Shard(3) and H == 1)) else pw
+        for pw, ph in zip(w.placements, heads)])
 
 
 def _merged_heads(out):

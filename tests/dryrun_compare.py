@@ -224,14 +224,15 @@ def start_cells(cells: dict, processes: int = 4) -> list:
     cell): handles for ``finish_cells``."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), JAX_PLATFORMS="cpu",
                OMP_NUM_THREADS="1")
-    # the largest meshes first, each to the process with the least mesh
-    # devices so far (a trace's time grows with them)
+    # the largest meshes first, each to the process with the fewest cells
+    # so far (a cell's time grows with its mesh, but far slower than its
+    # device count: 16x16 cells at full width take seconds)
     parts = [{} for _ in range(min(processes, len(cells)))]
     load = [0] * len(parts)
     for n in sorted(cells, key=lambda n: -math.prod(cells[n]["mesh"])):
         i = load.index(min(load))
         parts[i][n] = cells[n]
-        load[i] += math.prod(cells[n]["mesh"])
+        load[i] += 1
     procs = []
     for side in ("repro", "port"):
         for part in parts:

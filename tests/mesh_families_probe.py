@@ -55,9 +55,10 @@ def _rel(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
 
 
-def _paths(arch: str, mesh, overrides=None, seq: int = SEQ, placed_caches: bool = False):
-    """Each path on the mesh against the same path without one (a batch
-    of ``seq`` positions); returns the worst relative error it saw.  With
+def _paths(arch: str, mesh, overrides=None, seq: int = SEQ, rows: int = BATCH,
+           placed_caches: bool = False):
+    """Each path on the mesh against the same path without one (``rows``
+    rows of ``seq`` positions); returns the worst relative error it saw.  With
     ``placed_caches`` the decode step reads the prefill's caches placed as
     ``cache_shardings`` places a decode cell's, not as the prefill left
     them."""
@@ -69,7 +70,7 @@ def _paths(arch: str, mesh, overrides=None, seq: int = SEQ, placed_caches: bool 
 
     cfg = dataclasses.replace(get_config(arch).reduced(), **(overrides or {}))
     model, plain = _model(cfg, mesh), _model(cfg)
-    raw = SyntheticData.for_model(cfg, BATCH, seq, seed=0).batch(0)
+    raw = SyntheticData.for_model(cfg, rows, seq, seed=0).batch(0)
     whole = {k: torch.as_tensor(v) for k, v in raw.items()}
     batch = distribute(whole, batch_shardings(whole, mesh))
 
@@ -95,7 +96,7 @@ def _paths(arch: str, mesh, overrides=None, seq: int = SEQ, placed_caches: bool 
                       for layer, sh in zip(caches, cache_shardings(caches, mesh, cfg))]
         want_caches, want_logits = plain.prefill(
             {k: v for k, v in whole.items() if k != "labels"}, seq + 4)
-        token = torch.zeros((BATCH, 1), dtype=torch.int32)
+        token = torch.zeros((rows, 1), dtype=torch.int32)
         placed = distribute({"token": token}, batch_shardings({"token": token}, mesh))["token"]
         _, step = model.decode_step(caches, placed, seq)
         _, want_step = plain.decode_step(want_caches, token, seq)
@@ -107,7 +108,7 @@ def _paths(arch: str, mesh, overrides=None, seq: int = SEQ, placed_caches: bool 
 
 
 # cases beyond each family's reduced config on 2x2: {name: (arch, config
-# overrides, mesh shape[, sequence])}.  Three experts do not divide "model", so the
+# overrides, mesh shape[, sequence[, rows]])}.  Three experts do not divide "model", so the
 # grouped MoE's chunks keep the sequence's split (``moe._SeqSplit``): on
 # 1x4 a chunk of 8 of the 16 positions spans two devices' shares, one of 4
 # lies in one share; the flat path on 2x2 relays its tokens over the data
@@ -127,7 +128,13 @@ def _paths(arch: str, mesh, overrides=None, seq: int = SEQ, placed_caches: bool 
 # splits the heads (``layers.placed_like``).  recurrentgemma with three heads
 # on 2x2: "model" splits the head dim, which the attention's output
 # gathers before its heads merge (``transformer._merged_heads``), as at full
-# size (ten heads on 16).
+# size (ten heads on 16).  ``:token`` cases decode one row (a batch-1 step:
+# each token meets the weights where they lie, ``layers.local_product``) at
+# d_model 512, where the weights split their rows over "data", from caches
+# placed as a decode cell's; ``rwkv6-1.6b:batch-decode`` decodes four rows
+# there (the decay LoRA whole over "model" splits its columns); F18's
+# qwen3-4b at d_model 640 on 1x4 keeps its loss's logits on each device's
+# share of the sequence (``model._next_token``).
 CASES = {
     "mixtral-8x22b:split-span": ("mixtral-8x22b", {"n_experts": 3, "moe_group_seq": 8}, (1, 4)),
     "mixtral-8x22b:split-share": ("mixtral-8x22b", {"n_experts": 3, "moe_group_seq": 4},
@@ -141,8 +148,15 @@ CASES = {
     "rwkv6-1.6b:chunk-span": ("rwkv6-1.6b", None, (1, 4), 64),
     "rwkv6-1.6b:decode-cache": ("rwkv6-1.6b", {"rwkv_head_dim": 16}, (1, 4), 64),
     "recurrentgemma-2b:split-head-dim": ("recurrentgemma-2b", {"n_heads": 3}, (2, 2)),
+    "rwkv6-1.6b:token": ("rwkv6-1.6b", {"d_model": 512}, (2, 2), SEQ, 1),
+    "recurrentgemma-2b:token": ("recurrentgemma-2b", {"d_model": 512}, (2, 2), SEQ, 1),
+    "mixtral-8x22b:token": ("mixtral-8x22b", {"d_model": 512}, (2, 2), SEQ, 1),
+    "rwkv6-1.6b:batch-decode": ("rwkv6-1.6b", {"d_model": 512}, (2, 2)),
+    "qwen3-4b:1x4-d640": ("qwen3-4b", {"d_model": 640, "n_heads": 10, "head_dim": 64},
+                          (1, 4)),
 }
-PLACED_CACHES = {"rwkv6-1.6b:decode-cache"}
+PLACED_CACHES = {"rwkv6-1.6b:decode-cache", "rwkv6-1.6b:token", "recurrentgemma-2b:token",
+                 "mixtral-8x22b:token", "rwkv6-1.6b:batch-decode"}
 
 
 def _worker(rank: int, port: int, archs: list, out: str):

@@ -18,13 +18,17 @@ CPU, mirroring ``tests/test_dryrun.py`` and held against ``repro``'s.
   families', recurrentgemma's and rwkv6's collective bytes
   stay within 1.15x; rwkv6 with remat off, rwkv6 on 1x4 and 2x4 (a WKV
   chunk across devices' shares of the sequence), recurrentgemma with five
-  heads on 2x4 and a deepseek-v2 whose router the resolver leaves whole
-  over "model", as at full size, are held to both bounds;
+  heads on 2x4, a deepseek-v2 whose router the resolver leaves whole
+  over "model", as at full size, and qwen3-4b and recurrentgemma at
+  d_model 640 on 1x4 (F18) are held to both bounds;
 * rwkv6's gap is exactly XLA's dead scan products (``rwkv6_gap``) on
-  every rwkv6 cell, recurrentgemma's five-head gap exactly the product
-  XLA re-splits (``XLA_RESPLIT``), and reduced rwkv6's decode step with
-  its heads split and the cache's state split over its rows runs on local
-  shards with ``repro``'s FLOPs;
+  every rwkv6 cell, recurrentgemma's five-head gap and F18's 1x4 cases'
+  exactly the attention product XLA adds (``XLA_RESPLIT``), and reduced
+  rwkv6's decode step with its heads split and the cache's state split
+  over its rows runs on local shards with ``repro``'s FLOPs;
+* a batch-1 decode step at full width, one period of layers, on 16x16
+  (rwkv6, recurrentgemma, mixtral: ``TOKEN_CASES``) has ``repro``'s
+  per-device FLOPs exactly and its collective bytes within 1.15x;
 * reduced mixtral-8x22b and deepseek-v2-236b train steps with no mesh
   (also with several chunks a layer, and the flat and scatter dispatch)
   run each MoE chunk once forward and once in the backward, and each
@@ -49,6 +53,7 @@ from repro_torch.launch.op_analysis import analyze_step
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 import dryrun_compare  # noqa: E402
+import repro_dryrun_record as R  # noqa: E402
 
 COMPARED = ("qwen3-4b", "rwkv6-1.6b", "mixtral-8x22b", "deepseek-v2-236b",
             "recurrentgemma-2b")
@@ -60,10 +65,11 @@ COMPARED = ("qwen3-4b", "rwkv6-1.6b", "mixtral-8x22b", "deepseek-v2-236b",
 # chunk's two state products; ``rwkv6_gap``): 2.38% of repro's count at two
 # chunks a layer, 3.07% with remat off (PERF.md §6, tests/dryrun_compare.py
 # --by-op)
-BOUNDS = {arch: (0.98, 1.02) for arch in COMPARED} | {"rwkv6-1.6b": (0.96, 1.02)}
+BOUNDS = {arch: (1 - R.FLOPS_BOUND, 1 + R.FLOPS_BOUND) for arch in COMPARED} | {
+    "rwkv6-1.6b": (0.96, 1 + R.FLOPS_BOUND)}
 # port / repro per-device collective bytes at the cut cell, at most
-COLLECTIVE_BOUNDS = {"mixtral-8x22b": 1.15, "deepseek-v2-236b": 1.15,
-                     "recurrentgemma-2b": 1.15, "rwkv6-1.6b": 1.15}
+COLLECTIVE_BOUNDS = {arch: R.COLLECTIVE_BOUND for arch in (
+    "mixtral-8x22b", "deepseek-v2-236b", "recurrentgemma-2b", "rwkv6-1.6b")}
 # chunked MoE loops over a sequence that "model" splits (three experts do
 # not divide it, so the tokens keep that split): on 2x4 a group of 32 of
 # the 64 positions spans two devices' shares, one of 16 is one share; the
@@ -97,6 +103,14 @@ FAULT_CASES = {
     # head dim; XLA re-splits one backward product of the local attention
     "recurrentgemma-2x4-5-heads": ("recurrentgemma-2b", (2, 4), "n_heads=5", True),
 }
+# F18: a 1x4 mesh at d_model 640 leaves the head's vocabulary (288) whole
+# over "model"; the loss's logits stay on each device's share of the
+# sequence (model._next_token), 8 x 16 positions, not all 8 x 63.  The
+# cases are tests/repro_dryrun_record.py's (its record keeps repro's counts
+# for chip_smoke.py)
+F18_CASES = {key: c for key, c in R.REDUCED.items() if key.startswith("F18")}
+FAULT_CASES |= {key: (c["arch"], c["mesh"], c["overrides"], True)
+                for key, c in F18_CASES.items()}
 # repro's per-device FLOPs less the port's where XLA's partitioner re-splits
 # the local attention's backward product over the q-chunk's positions with
 # the whole head dim (its "involuntary full rematerialization"), where the
@@ -104,7 +118,11 @@ FAULT_CASES = {
 # (2 of 32 positions, one attention layer) f32[4,5,16,64] = f32[4,5,16,16] x
 # f32[4,5,16,64] (655,360) against the port's (20,32,4) x (20,4,64)
 # (327,680): 2 x 327,680.  At full size on 16x16: 32 x (8.59e10 - 2.15e10).
-XLA_RESPLIT = {"recurrentgemma-2x4-5-heads": 655_360}
+# F18's cases split the head dim too (ten heads on 4): there XLA's backward
+# runs one attention product more than the port a q-chunk of an attention
+# layer, 2 x B x H x 32 x 64 x 16 = 5,242,880 (qwen3-4b's 2 layers and
+# recurrentgemma-2b's 1 layer, two q-chunks each)
+XLA_RESPLIT = {"recurrentgemma-2x4-5-heads": 655_360} | {key: R.GAPS[key] for key in F18_CASES}
 # the rwkv6 cells held exactly: (mesh, whose record); ``compared`` is the
 # 2x2 cell of COMPARED
 RWKV6_CELLS = {"2x2": ((2, 2), "compared"), "2x2-no-remat": ((2, 2), "rwkv6-2x2-no-remat"),
@@ -136,6 +154,13 @@ def rwkv6_gap(mesh) -> int:
 # (chip_smoke.py keeps the count: its host has no JAX)
 DECODE_CASE = ((2, 4), "rwkv_head_dim=16")
 DECODE_FLOPS = 208_896
+# F17: one token (long_500k's batch 1) at full width, cut to one period of
+# layers, on 16x16: every product meets its weight where the weight lies
+# (layers.local_product), the decode states meet the token at one
+# placement (layers.meeting); repro's per-device FLOPs exactly, and its
+# collective bytes within 1.15x.  The cases are
+# tests/repro_dryrun_record.py's; its record pins repro's counts
+TOKEN_CASES = {key: c for key, c in R.REDUCED.items() if key.startswith("F17")}
 
 
 @pytest.fixture(scope="module")
@@ -163,8 +188,10 @@ def runs(tmp_path_factory):
     cells |= {f"fault {case}": dict(arch=arch, shape="train_4k", mesh=mesh, remat=remat,
                                     overrides=overrides)
               for case, (arch, mesh, overrides, remat) in FAULT_CASES.items()}
+    cells |= {f"fault {key}": cell for key, cell in F18_CASES.items()}    # as recorded
     cells["decode"] = dict(arch="rwkv6-1.6b", shape="decode_32k", mesh=DECODE_CASE[0],
                            overrides=DECODE_CASE[1])
+    cells |= {f"token {key}": cell for key, cell in TOKEN_CASES.items()}
     got = dryrun_compare.finish_cells(dryrun_compare.start_cells(cells))
     stdout, stderr = cli.communicate(timeout=900)
     pf_stdout, pf_stderr = prefill.communicate(timeout=900)
@@ -173,6 +200,7 @@ def runs(tmp_path_factory):
             "split": {case: got[f"split {case}"] for case in SPLIT_CASES},
             "faults": {case: got[f"fault {case}"] for case in FAULT_CASES},
             "decode": got["decode"],
+            "token": {key: got[f"token {key}"] for key in TOKEN_CASES},
             "prefill": (prefill.returncode, pf_stdout, pf_stderr, pf_out)}
 
 
@@ -366,15 +394,17 @@ def test_split_chunk_flops_against_repro(runs, case):
 @pytest.mark.parametrize("case", sorted(FAULT_CASES))
 def test_fault_case_flops_against_repro(runs, case):
     """rwkv6's WKV chunk runs over its head's channels as XLA places
-    ``repro``'s (F10), and deepseek-v2's router whole over "model" takes
-    a device's share of each chunk (F11); collective bytes within 1.15x."""
+    ``repro``'s (F10), deepseek-v2's router whole over "model" takes a
+    device's share of each chunk (F11), and the loss's logits on a 1x4
+    mesh stay on a device's share of the sequence (F18: +13.97% and
+    +18.88% before); collective bytes within 1.15x."""
     got = runs["faults"][case]
     port, repro = got["port"]["flops"], got["repro"]["flops"]
     assert port > 0 and repro > 0
     lo, hi = BOUNDS.get(FAULT_CASES[case][0], (0.98, 1.02))
     assert lo <= port / repro <= hi, (port, repro)
     port, repro = got["port"]["collective_bytes"], got["repro"]["collective_bytes"]
-    assert 0 < port <= 1.15 * repro, (port, repro)
+    assert 0 < port <= R.COLLECTIVE_BOUND * repro, (port, repro)
 
 
 @pytest.mark.parametrize("cell", sorted(RWKV6_CELLS))
@@ -390,7 +420,8 @@ def test_rwkv6_gap_is_xlas_dead_scan_products(runs, cell):
 
 @pytest.mark.parametrize("case", sorted(XLA_RESPLIT))
 def test_recurrentgemma_gap_is_xlas_resplit_product(runs, case):
-    """F13 reduced: the whole gap is the one product XLA re-splits."""
+    """F13 reduced, and F18's cases: where the heads do not divide
+    "model", the whole gap is the attention product XLA's backward adds."""
     got = runs["faults"][case]
     assert got["repro"]["flops"] - got["port"]["flops"] == XLA_RESPLIT[case], got
 
@@ -404,6 +435,25 @@ def test_rwkv6_decode_step_on_local_shards(runs):
     got = runs["decode"]
     assert got["port"]["local_heads"] == {"_wkv_step": 2}, got["port"]
     assert got["port"]["flops"] == got["repro"]["flops"] == DECODE_FLOPS, got
+
+
+@pytest.mark.parametrize("key", sorted(TOKEN_CASES))
+def test_token_decode_meets_the_weights_where_they_lie(runs, key):
+    """F17: a batch-1 decode step at full width on 16x16 does repro's
+    per-device work, product for product, and moves no weight: its
+    collective bytes stay within 1.15x of repro's (before: up to 10^3x)."""
+    got = runs["token"][key]
+    assert got["port"]["flops"] == got["repro"]["flops"], got
+    port, repro = got["port"]["collective_bytes"], got["repro"]["collective_bytes"]
+    assert 0 < port <= R.COLLECTIVE_BOUND * repro, (port, repro)
+
+
+@pytest.mark.parametrize("key", sorted(R.REDUCED))
+def test_record_holds_repros_reduced_counts(runs, key):
+    """The record's reduced entries, which chip_smoke.py holds the port to
+    on a host without JAX, are repro's per-device FLOPs of this run."""
+    got = runs["token"][key] if key in TOKEN_CASES else runs["faults"][key]
+    assert R.load()[key]["flops"] == got["repro"]["flops"], key
 
 
 def count_chunk_calls(arch: str, seq: int = 64, batch: int = 2, **overrides) -> dict:
@@ -504,3 +554,27 @@ for multi in (False, True):
     assert r.returncode == 0, r.stderr[-2000:]
     assert r.stdout.split("\n")[:2] == ["(16, 16) ('data', 'model')",
                                         "(2, 16, 16) ('pod', 'data', 'model')"]
+
+
+def test_transposition_takes_only_even_splits():
+    """``layers._transposition`` moves a split between two mesh dims of one
+    size as a broadcast of equal blocks only where the dim divides the mesh
+    dim; an uneven split (blocks of two sizes) is left to ``DTensor``."""
+    code = """
+import torch, torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from repro_torch.models.layers import _transposition
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+for rows in (4, 3):
+    t = DTensor.from_local(torch.zeros(2, 8), mesh, [Shard(0), Replicate()], run_check=False,
+                           shape=torch.Size((rows, 8)), stride=(8, 1))
+    print(_transposition(t, [Replicate(), Shard(0)]))
+dist.destroy_process_group()
+"""
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       timeout=300, env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.split("\n")[:2] == ["(1, 0)", "None"]
